@@ -1,0 +1,509 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's main path on one NVIDIA GPU and check it.
+
+Run from the repository root on a machine with a card:
+
+    python3 chip_smoke.py
+
+Phases, each printed as one JSON line; any failure exits non-zero and the
+last line is then never printed:
+
+1. device: the card's name and power limit (nvidia-smi), then nvcc builds
+   every kernel under deepgraphpose_tpu_torch/csrc for sm_90a;
+2. kernel: the CUDA decode kernel against its plain PyTorch version on the
+   card (mu within 1e-4 cells, likelihood within 1e-5) at the maps of both
+   main-path phases (full frame and tracked crop) and a small odd shape,
+   and its time at each main-path shape beside its memory bound and the
+   plain version's time, for each candidate launch layout;
+3. f32: the full ResNet-50 model in float32 (TF32 off) on 4 frames at
+   747x832, ``infer_forward`` (kernel decode) against the same heads
+   through the plain decode, and the card's part_pred logits of one frame
+   against the port's own forward on the CPU (the CPU path is the one
+   tests/test_torch_*.py hold to the JAX package);
+4. full-frame: bfloat16, batch 128 at 747x832 through ``make_infer_fn``
+   over a device-resident ring of 4 seeded uint8 batches, 1024 frames;
+5. tracked crop: ``estimate_pose_dynamic`` at 747x832 with a (408, 448)
+   window and chunk 128 over 1024 frames of a seeded moving blob;
+6. profile: where the device time goes, from torch.profiler over 3
+   full-frame batches and 3 tracked-crop steps (device ms per batch by
+   kernel class, device busy share);
+7. the ``{"kernels": [...]}`` line;
+8. ``{"ok": true, "device": {...}}``.
+
+Every kernel wrapper counts its launches; the counts are set to 0 just
+before each of phases 4 and 5 and read just after, and each must be > 0.
+The weights are random, from a seeded torch.Generator; nothing is read
+from disk but the repository's own sources.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+HW = (747, 832)
+CROP_HW = (408, 448)
+NUM_JOINTS = 5
+BATCH = 128
+FRAMES = 1024
+SEED = 0
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
+F32_OPS_PER_S = 67e12         # H100 SXM, float32 outside the tensor cores
+MU_TOL, LIK_TOL = 1e-4, 1e-5
+# card vs CPU float32 logits, relative to the largest logit: both sum the
+# convolutions in float32, in different orders and algorithms
+LOGIT_RTOL = 1e-3
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def card_line() -> str:
+    res = subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True)
+    return res.stdout.strip()
+
+
+def kernel_errors(x, gamma, gauss_len, layout=None):
+    """(mu err in cells, lik err) of the kernel against the plain version.
+
+    The likelihood is held against the plain 2x2 read at the kernel's own
+    cell: where mu lies within 1e-4 of an integer the two versions may
+    floor to neighbouring cells, and both reads are then right.
+    """
+    import torch
+
+    from deepgraphpose_tpu_torch.ops import softargmax as plain
+    from deepgraphpose_tpu_torch.ops.kernels import softargmax_kernel
+
+    mu_k, lik_k = softargmax_kernel.softargmax_likelihood(
+        x, gamma, gauss_len, layout=layout)
+    torch.cuda.synchronize()
+    mu_p, _ = plain.softargmax_2d(x, gamma=gamma, gauss_len=gauss_len)
+    lik_p = plain.max_sigmoid_2x2(x, mu_k)
+    torch.cuda.synchronize()
+    return ((mu_k - mu_p).abs().max().item(),
+            (lik_k - lik_p).abs().max().item())
+
+
+def time_ms(fn, inputs, reps: int) -> float:
+    """Mean device ms per call over ``reps`` calls cycling through
+    ``inputs`` (a ring larger than the 50 MB L2, so each call reads from
+    memory). The calls are captured once in a CUDA graph and replayed, so
+    the time is the card's and not the host's launch rate."""
+    import torch
+
+    for x in inputs:
+        fn(x)                                   # build, weight cache, autotune
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(reps):
+            fn(inputs[i % len(inputs)])
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def decode_bound(shape) -> dict:
+    """Least time of the decode at ``shape``: each logit read once, the
+    weight vectors read once, mu and lik written once; 10 float32
+    operations a logit (scale, max, exp, three weighted sums)."""
+    b, h, w, c = shape
+    n_bytes = 4 * (b * h * w * c + 3 * b * c + 2 * (h + w))
+    n_ops = 10 * b * h * w * c
+    bound = {"bytes": 1e3 * n_bytes / HBM_BYTES_PER_S,
+             "operations": 1e3 * n_ops / F32_OPS_PER_S}
+    bound_by = max(bound, key=bound.get)
+    return {"bound_ms": bound[bound_by], "bound_by": bound_by,
+            "bytes": n_bytes}
+
+
+def candidate_layouts(shape, sms: int):
+    """(joints per block, threads) layouts the kernel phase times: the
+    wrapper's choice, then one group of all joints and the split of joints
+    into groups that fill twice the SMs, each at about 512 and 1024
+    threads."""
+    from deepgraphpose_tpu_torch.ops.kernels import softargmax_kernel
+
+    batch, h, w, joints = shape
+    split = -(-joints // min(joints, -(-2 * sms // batch)))
+    found = [softargmax_kernel.launch_shape(h, w, joints)]
+    found += [(j, j * (t // j)) for j in (joints, split) for t in (512, 1024)]
+    return list(dict.fromkeys(found))
+
+
+def phase_kernel(cfg, device):
+    """The decode kernel against its plain version at the main path's two
+    map shapes (full frame and tracked crop) and a small odd one, then its
+    time at each main-path shape, for each candidate layout."""
+    import numpy as np
+    import torch
+
+    from deepgraphpose_tpu_torch.models.pose_model import scoremap_size
+    from deepgraphpose_tpu_torch.ops import softargmax as plain
+    from deepgraphpose_tpu_torch.ops.kernels import softargmax_kernel
+
+    full = (BATCH, *scoremap_size(cfg, HW), NUM_JOINTS)
+    crop = (BATCH, *scoremap_size(cfg, CROP_HW), NUM_JOINTS)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    rng = np.random.default_rng(SEED)
+    worst_mu = worst_lik = 0.0
+
+    def check(x, gamma, gauss_len, layout=None):
+        nonlocal worst_mu, worst_lik
+        e_mu, e_lik = kernel_errors(x, gamma, gauss_len, layout)
+        worst_mu, worst_lik = max(worst_mu, e_mu), max(worst_lik, e_lik)
+        if e_mu > MU_TOL or e_lik > LIK_TOL:
+            raise AssertionError(
+                f"kernel disagrees with plain at {tuple(x.shape)}, gauss_len "
+                f"{gauss_len}, gamma {gamma}, layout {layout}: mu {e_mu}, "
+                f"lik {e_lik}")
+
+    def maps(shape):
+        return torch.from_numpy(
+            (rng.standard_normal(shape) * 3).astype(np.float32)).to(device)
+
+    g, s = cfg.gamma, cfg.gauss_len
+    shapes = []
+    for shape in (full, crop, (3, 23, 31, 4)):
+        x = maps(shape)
+        for gauss_len in (0.0, 1.0, 2.0):
+            for gamma in (1.0, 2.5):
+                check(x, gamma, gauss_len)
+        if shape == (3, 23, 31, 4):
+            continue
+        layouts = candidate_layouts(shape, sms)    # the wrapper's one first
+        for layout in layouts:
+            check(x, g, s, layout)
+        # a ring of inputs twice the L2, so each launch reads from memory
+        bound = decode_bound(shape)
+        ring = [x] + [maps(shape) for _ in range(
+            min(64, max(4, -(-100_000_000 // bound["bytes"]))) - 1)]
+        by_layout = [{"joints_per_block": j, "threads": t, "ms": time_ms(
+            lambda x: softargmax_kernel.softargmax_likelihood(
+                x, g, s, layout=(j, t)), ring, 200)} for j, t in layouts]
+        shapes.append({
+            "shape": list(shape), "ms": by_layout[0]["ms"],
+            "plain_ms": time_ms(lambda x: plain.softargmax_likelihood(
+                x, g, s), ring, 20),
+            **bound, "by_layout": by_layout})
+    out = {"phase": "kernel", "max_abs_err_mu": worst_mu,
+           "max_abs_err_lik": worst_lik, "shapes": shapes}
+    emit(out)
+    return out
+
+
+def phase_f32(cfg, device, generator):
+    import numpy as np
+    import torch
+
+    from deepgraphpose_tpu_torch.infer.predict import infer_forward
+    from deepgraphpose_tpu_torch.models.pose_model import PoseModel, init_model
+    from deepgraphpose_tpu_torch.ops import softargmax as plain
+
+    model = init_model(cfg, generator, torch.float32, device)
+    rng = np.random.default_rng(SEED + 1)
+    images = torch.from_numpy(
+        rng.integers(0, 256, (4, *HW, 3), dtype=np.uint8)).to(device)
+    cudnn = torch.backends.cudnn
+    with cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                     allow_tf32=False):
+        mu_k, lik_k = infer_forward(model, cfg, images)
+        with torch.inference_mode():
+            pred = model(images, heads=("part_pred",))["part_pred"]
+            mu_p, _ = plain.softargmax_2d(pred, gamma=cfg.gamma,
+                                          gauss_len=cfg.gauss_len)
+            lik_p = plain.max_sigmoid_2x2(pred, mu_k)
+    torch.cuda.synchronize()
+    px = ((mu_k - mu_p).abs().max() * cfg.stride).item()
+    e_lik = (lik_k - lik_p).abs().max().item()
+
+    ref = PoseModel(cfg, dtype=torch.float32)
+    ref.load_state_dict(model.state_dict())
+    ref = ref.to(memory_format=torch.channels_last).eval()
+    with torch.inference_mode():
+        pred_cpu = ref(images[:1].cpu(), heads=("part_pred",))["part_pred"]
+        mu_cpu, _ = plain.softargmax_2d(pred_cpu, gamma=cfg.gamma,
+                                        gauss_len=cfg.gauss_len)
+    scale = pred_cpu.abs().max().item()
+    logit_rel = (pred[:1].cpu() - pred_cpu).abs().max().item() / scale
+    out = {"phase": "f32", "frames": 4, "hw": list(HW),
+           "scoremap": list(pred.shape[1:3]), "max_px_diff": px,
+           "max_lik_diff": e_lik, "cpu_ref_logit_rel": logit_rel,
+           "logit_absmax": scale,
+           "cpu_ref_px_diff": (mu_k[:1].cpu() - mu_cpu).abs().max().item()
+           * cfg.stride}
+    emit(out)
+    if not (np.isfinite(px) and px <= MU_TOL * cfg.stride and e_lik <= LIK_TOL
+            and np.isfinite(logit_rel) and logit_rel <= LOGIT_RTOL):
+        raise AssertionError(f"f32 forward: kernel decode vs plain, or card "
+                             f"vs CPU logits, out of tolerance: {out}")
+    return model, images, mu_k, pred
+
+
+def phase_full_frame(cfg, device, model_f32, images4, mu_f32, pred_f32):
+    import numpy as np
+    import torch
+
+    from deepgraphpose_tpu_torch.infer.predict import (infer_forward,
+                                                       make_infer_fn)
+    from deepgraphpose_tpu_torch.models.pose_model import PoseModel
+    from deepgraphpose_tpu_torch.ops.kernels import softargmax_kernel
+
+    model = PoseModel(cfg, dtype=torch.bfloat16)
+    model.load_state_dict(model_f32.state_dict())
+    model = model.to(device, memory_format=torch.channels_last).eval()
+    mu_bf16, _ = infer_forward(model, cfg, images4)
+    err = ((mu_bf16 - mu_f32).abs() * cfg.stride)
+    bf16_px = {"max": err.max().item(), "mean": err.mean().item()}
+    with torch.inference_mode():
+        pred = model(images4, heads=("part_pred",))["part_pred"]
+    bf16_logit_rel = ((pred - pred_f32).abs().max()
+                      / pred_f32.abs().max()).item()
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 2)
+    ring = [torch.randint(0, 256, (BATCH, *HW, 3), generator=gen,
+                          dtype=torch.uint8, device=device) for _ in range(4)]
+    infer = make_infer_fn(model, cfg)
+    infer(ring[0])                              # cuDNN autotunes this shape
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    softargmax_kernel.launches = 0
+    t0 = time.perf_counter()
+    outs = [infer(ring[i % len(ring)]) for i in range(FRAMES // BATCH)]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = softargmax_kernel.launches
+    mu, lik = outs[-1]
+    ok = (tuple(mu.shape) == (BATCH, NUM_JOINTS, 2)
+          and bool(torch.isfinite(mu).all()) and bool(torch.isfinite(lik).all())
+          and bool(((lik >= 0) & (lik <= 1)).all()))
+    out = {"phase": "full_frame", "dtype": "bfloat16", "batch": BATCH,
+           "hw": list(HW), "frames": FRAMES, "seconds": dt,
+           "frames_per_s": FRAMES / dt, "launches": launches,
+           "bf16_vs_f32_px": bf16_px,
+           "bf16_vs_f32_logit_rel": bf16_logit_rel,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    emit(out)
+    if (launches <= 0 or not ok or not np.isfinite(bf16_px["max"])
+            or not np.isfinite(bf16_logit_rel)):
+        raise AssertionError(f"full-frame path failed: {out}")
+    return model, launches
+
+
+def moving_blob_frames(n: int):
+    """(n, 747, 832, 3) uint8: fixed seeded noise plus a bright disc that
+    circles the frame."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 3)
+    base = rng.integers(0, 40, (*HW, 3), dtype=np.uint8)
+    frames = np.broadcast_to(base, (n, *HW, 3)).copy()
+    t = np.arange(n)
+    rows = (HW[0] / 2 + HW[0] / 4 * np.sin(2 * np.pi * t / 400)).astype(int)
+    cols = (HW[1] / 2 + HW[1] / 4 * np.cos(2 * np.pi * t / 400)).astype(int)
+    for k in range(n):
+        frames[k, rows[k] - 12:rows[k] + 12, cols[k] - 12:cols[k] + 12] = 255
+    return frames
+
+
+def phase_tracked_crop(cfg, device, model):
+    import numpy as np
+    import torch
+
+    from deepgraphpose_tpu_torch.infer.dynamic import estimate_pose_dynamic
+    from deepgraphpose_tpu_torch.ops.kernels import softargmax_kernel
+
+    frames = moving_blob_frames(FRAMES)
+    kw = dict(crop_hw=CROP_HW, chunk=BATCH, device=device)
+    estimate_pose_dynamic(model, cfg, frames[:4 * BATCH], **kw)  # autotune
+    torch.cuda.synchronize()
+    softargmax_kernel.launches = 0
+    t0 = time.perf_counter()
+    res = estimate_pose_dynamic(model, cfg, frames, **kw)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = softargmax_kernel.launches
+    ok = (res["mu"].shape == (FRAMES, NUM_JOINTS, 2)
+          and np.isfinite(res["mu"]).all()
+          and np.isfinite(res["likelihoods"]).all())
+    out = {"phase": "tracked_crop", "dtype": "bfloat16", "chunk": BATCH,
+           "hw": list(HW), "crop_hw": list(CROP_HW), "frames": FRAMES,
+           "seconds": dt, "frames_per_s": FRAMES / dt,
+           "cropped_share": float(res["cropped"].mean()),
+           "launches": launches}
+    emit(out)
+    if launches <= 0 or not ok:
+        raise AssertionError(f"tracked-crop path failed: {out}")
+    return launches
+
+
+def kernel_class(name: str) -> str:
+    """Sort a device kernel's name into convolution, elementwise, copy,
+    decode or other."""
+    import re
+
+    for label, pattern in (
+            ("decode", r"softargmax_likelihood"),
+            ("convolution",
+             r"(?i)conv|cudnn|xmma|implicit|gemm|wgrad|dgrad|fprop|sm90"),
+            ("copy", r"(?i)copy|memcpy|memset|cat|pad"),
+            ("elementwise", r"(?i)elementwise|vectorized|reduce|pool|max")):
+        if re.search(pattern, name):
+            return label
+    return "other"
+
+
+def busy_us(intervals) -> float:
+    """Length of the union of (start, end) intervals."""
+    total, cur_start, cur_end = 0.0, None, None
+    for start, end in sorted(intervals):
+        if cur_end is None or start > cur_end:
+            if cur_end is not None:
+                total += cur_end - cur_start
+            cur_start, cur_end = start, end
+        else:
+            cur_end = max(cur_end, end)
+    if cur_end is not None:
+        total += cur_end - cur_start
+    return total
+
+
+def profile_path(name: str, step, batches: int) -> dict:
+    """Trace ``batches`` calls of ``step`` with torch.profiler: wall ms per
+    batch, the device's busy share of that wall time (union of kernel
+    intervals), and device ms per batch by kernel class."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    step()                                      # autotune outside the trace
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(batches):
+            step()
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        raise RuntimeError("the profiler recorded no device kernels")
+    by_class: dict[str, float] = {}
+    by_name: dict[str, float] = {}
+    for e in kernels:
+        us = e.time_range.end - e.time_range.start
+        by_class[kernel_class(e.name)] = by_class.get(
+            kernel_class(e.name), 0.0) + us
+        by_name[e.name] = by_name.get(e.name, 0.0) + us
+    busy = busy_us((e.time_range.start, e.time_range.end) for e in kernels)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return {
+        "phase": "profile", "path": name, "batches": batches,
+        "wall_ms_per_batch": wall_us / batches / 1e3,
+        "device_busy_share": busy / wall_us,
+        "kernels_per_batch": len(kernels) / batches,
+        "device_ms_per_batch": {k: v / batches / 1e3 for k, v in
+                                sorted(by_class.items(),
+                                       key=lambda kv: -kv[1])},
+        "top_kernels_ms_per_batch": [[n[:90], v / batches / 1e3]
+                                     for n, v in top],
+    }
+
+
+def phase_profile(cfg, device, model, batches: int = 3) -> None:
+    """Where the device time goes: full-frame batches and tracked-crop
+    steps (the crop step alone, at a fixed center) of the bf16 model."""
+    import torch
+
+    from deepgraphpose_tpu_torch.infer.dynamic import make_crop_infer_fn
+    from deepgraphpose_tpu_torch.infer.predict import make_infer_fn
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 4)
+    frames = torch.randint(0, 256, (BATCH, *HW, 3), generator=gen,
+                           dtype=torch.uint8, device=device)
+    full = make_infer_fn(model, cfg)
+    crop = make_crop_infer_fn(model, cfg, CROP_HW)
+    center = (HW[0] / 2, HW[1] / 2)
+    for name, step in (("full_frame", lambda: full(frames)),
+                       ("tracked_crop", lambda: crop(frames, center))):
+        emit(profile_path(name, step, batches))
+
+
+def main() -> int:
+    if not (ROOT / "deepgraphpose_tpu_torch").is_dir():
+        print("chip_smoke.py: run it from a checkout of the repository "
+              "(deepgraphpose_tpu_torch/ not found)", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke.py: CUDA is not available; this check runs on an "
+              "NVIDIA GPU", file=sys.stderr)
+        return 1
+
+    from deepgraphpose_tpu_torch.core.config import PoseConfig
+    from deepgraphpose_tpu_torch.ops.kernels import build
+
+    device = torch.device("cuda")
+    print(card_line(), flush=True)
+    t0 = time.perf_counter()
+    build.build_all()
+    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "sources": build.sources(), "nvcc": " ".join(build.NVCC_FLAGS),
+          "ptxas": {k: v.strip() for k, v in build.build_logs.items()}})
+    emit({"phase": "device", "torch": torch.__version__,
+          "cuda": torch.version.cuda, "python": sys.version.split()[0]})
+
+    cfg = PoseConfig(net_type="resnet_50", num_joints=NUM_JOINTS,
+                     compute_dtype="bfloat16", infer_batch_size=BATCH)
+    generator = torch.Generator().manual_seed(SEED)
+    kern = phase_kernel(cfg, device)
+    model_f32, images4, mu_f32, pred_f32 = phase_f32(cfg, device, generator)
+    model, full_launches = phase_full_frame(cfg, device, model_f32, images4,
+                                            mu_f32, pred_f32)
+    del model_f32, pred_f32
+    crop_launches = phase_tracked_crop(cfg, device, model)
+    phase_profile(cfg, device, model)
+
+    main_shape = kern["shapes"][0]          # the full-frame maps
+    emit({"kernels": [{
+        "name": "softargmax_likelihood", "route": "cuda",
+        "source": "deepgraphpose_tpu_torch/csrc/softargmax.cu",
+        "replaces": "deepgraphpose_tpu/ops/pallas/softargmax_kernel.py:89",
+        "launches": full_launches + crop_launches,
+        "launches_full_frame": full_launches,
+        "launches_tracked_crop": crop_launches,
+        "max_abs_err": max(kern["max_abs_err_mu"], kern["max_abs_err_lik"]),
+        "max_abs_err_mu": kern["max_abs_err_mu"],
+        "max_abs_err_lik": kern["max_abs_err_lik"],
+        "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
+        "bound_ms": main_shape["bound_ms"], "bound_by": main_shape["bound_by"],
+        "library_ms": None,
+        "shapes": [{k: d[k] for k in ("shape", "ms", "plain_ms", "bound_ms",
+                                      "bound_by")} for d in kern["shapes"]],
+    }]})
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,182 @@
+"""ResNet-v1 backbones (50 / 101 / 152) with frozen batch-norm, in PyTorch.
+
+Behavioral spec (ref: deeplabcut/pose_estimation_tensorflow/nnet/
+pose_net.py:36-53): slim ``resnet_v1_{50,101,152}`` with
+``global_pool=False, output_stride=16, is_training=False``. Strides live on
+the *last* unit of each block; once the accumulated stride reaches
+``output_stride`` the remaining units switch to dilated (atrous) convs.
+
+Padding follows slim exactly, as in ``deepgraphpose_tpu.models.resnet``:
+stride-1 convs are TF 'SAME' and strided convs are slim ``conv2d_same``
+(explicit symmetric pad of ``keff - 1``, then VALID). For the odd kernels
+used here both reduce to a symmetric pad of ``rate * (k - 1) / 2``, which
+``nn.Conv2d(padding=...)`` expresses directly. The root max-pool is VALID.
+
+Layout: modules take NCHW tensors; the port keeps them in
+``torch.channels_last`` memory so cuDNN runs NHWC convolutions. Weights
+live in the compute dtype; batch-norm statistics stay float32.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+BLOCK_UNITS = {
+    "resnet_50": (3, 4, 6, 3),
+    "resnet_101": (3, 4, 23, 3),
+    "resnet_152": (3, 8, 36, 3),
+}
+
+
+def same_pad_for_stride(kernel: int, rate: int = 1) -> tuple[int, int]:
+    """slim ``conv2d_same`` explicit padding for strided convs: the
+    effective kernel minus one, split symmetrically (low side first)."""
+    keff = kernel + (kernel - 1) * (rate - 1)
+    total = keff - 1
+    return (total // 2, total - total // 2)
+
+
+def _conv(cin: int, cout: int, k: int, stride: int = 1, rate: int = 1,
+          dtype=torch.float32) -> nn.Conv2d:
+    lo, hi = same_pad_for_stride(k, rate)
+    if lo != hi:
+        raise ValueError(f"asymmetric pad for kernel {k}, rate {rate}")
+    return nn.Conv2d(cin, cout, k, stride=stride, padding=lo, dilation=rate,
+                     bias=False, dtype=dtype)
+
+
+class FrozenBatchNorm(nn.Module):
+    """Batch-norm in inference mode: a per-channel affine transform.
+
+    ``scale``/``bias`` are parameters and ``mean``/``var`` buffers, named
+    as in the flax module. The train mode waits for the training slice.
+    """
+
+    def __init__(self, features: int, epsilon: float = 1e-5):
+        super().__init__()
+        self.epsilon = epsilon
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("mean", torch.zeros(features))
+        self.register_buffer("var", torch.ones(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # inv in float32, then x * inv + (bias - mean * inv) in x's dtype
+        # (ref: deepgraphpose_tpu models/resnet.py:93-94)
+        inv = self.scale / torch.sqrt(self.var + self.epsilon)
+        shift = self.bias - self.mean * inv
+        return x * inv.to(x.dtype)[:, None, None] + shift.to(x.dtype)[:, None, None]
+
+
+class BottleneckV1(nn.Module):
+    """slim resnet_v1 bottleneck unit: 1x1 -> 3x3(stride/rate) -> 1x1 + skip."""
+
+    def __init__(self, in_depth: int, depth: int, depth_bottleneck: int,
+                 stride: int = 1, rate: int = 1, dtype=torch.float32):
+        super().__init__()
+        self.stride = stride
+        self.project = in_depth != depth
+        if self.project:
+            self.shortcut_conv = _conv(in_depth, depth, 1, stride, dtype=dtype)
+            self.shortcut_bn = FrozenBatchNorm(depth)
+        self.conv1 = _conv(in_depth, depth_bottleneck, 1, dtype=dtype)
+        self.bn1 = FrozenBatchNorm(depth_bottleneck)
+        self.conv2 = _conv(depth_bottleneck, depth_bottleneck, 3, stride, rate,
+                           dtype=dtype)
+        self.bn2 = FrozenBatchNorm(depth_bottleneck)
+        self.conv3 = _conv(depth_bottleneck, depth, 1, dtype=dtype)
+        self.bn3 = FrozenBatchNorm(depth)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.project:
+            shortcut = self.shortcut_bn(self.shortcut_conv(x))
+        elif self.stride != 1:
+            # slim subsample(): 1x1 max-pool with stride
+            shortcut = x[:, :, ::self.stride, ::self.stride]
+        else:
+            shortcut = x
+        y = F.relu(self.bn1(self.conv1(x)))
+        y = F.relu(self.bn2(self.conv2(y)))
+        y = self.bn3(self.conv3(y))
+        return F.relu(shortcut + y)
+
+
+def unit_plan(units: Sequence[int], output_stride: int):
+    """Resolved per-unit plan: (name, depth, depth_bottleneck, stride, rate).
+
+    slim v1 stride/atrous policy: stride 2 on the *last* unit of blocks 1-3
+    (block4 stride 1), switching to dilated convs once the accumulated
+    stride reaches ``output_stride`` (ref: tf.contrib.slim
+    resnet_utils.stack_blocks_dense).
+    """
+    depths = (256, 512, 1024, 2048)
+    bottlenecks = (64, 128, 256, 512)
+    plan = []
+    current_stride = 4
+    rate = 1
+    for b, (n_units, depth, db) in enumerate(
+            zip(units, depths, bottlenecks)):
+        block_stride = 2 if b < 3 else 1
+        for u in range(n_units):
+            unit_stride = block_stride if u == n_units - 1 else 1
+            if unit_stride != 1 and current_stride >= output_stride:
+                # switch to atrous: keep resolution, grow the rate
+                effective_stride = 1
+                unit_rate = rate
+                rate = rate * unit_stride
+            else:
+                effective_stride = unit_stride
+                unit_rate = rate
+            plan.append((f"block{b + 1}_unit{u + 1}", depth, db,
+                         effective_stride, unit_rate))
+            current_stride *= effective_stride
+    return plan
+
+
+class ResNetV1(nn.Module):
+    """ResNet-v1 trunk with output_stride control (no global pool / fc).
+
+    forward(x NCHW) -> (features, end_points) with ``end_points["blockN"]``
+    the output of block N.
+    """
+
+    def __init__(self, units: Sequence[int] = (3, 4, 6, 3),
+                 output_stride: int = 16, dtype=torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.conv1 = _conv(3, 64, 7, 2, dtype=dtype)
+        self.bn1 = FrozenBatchNorm(64)
+        self.unit_names = []
+        in_depth = 64
+        for name, depth, db, stride, rate in unit_plan(units, output_stride):
+            self.add_module(name, BottleneckV1(in_depth, depth, db, stride,
+                                               rate, dtype=dtype))
+            self.unit_names.append(name)
+            in_depth = depth
+        self.out_depth = in_depth
+
+    def forward(self, x: torch.Tensor):
+        x = x.to(self.dtype)
+        # slim root: conv2d_same(64, 7, stride=2) -> pad (3,3) + VALID,
+        # then a VALID 3x3/2 max-pool
+        x = F.relu(self.bn1(self.conv1(x)))
+        x = F.max_pool2d(x, 3, 2)
+        end_points = {}
+        for name in self.unit_names:
+            x = getattr(self, name)(x)
+            end_points[name.split("_")[0]] = x
+        return x, end_points
+
+
+def make_backbone(net_type: str, output_stride: int = 16,
+                  dtype=torch.float32) -> ResNetV1:
+    if net_type not in BLOCK_UNITS:
+        raise ValueError(
+            f"unknown net_type {net_type!r}; available: {sorted(BLOCK_UNITS)}"
+            " (mobilenet waits for a later slice of the port)")
+    return ResNetV1(units=BLOCK_UNITS[net_type], output_stride=output_stride,
+                    dtype=dtype)
