@@ -24,20 +24,42 @@ last line is then never printed:
    over a device-resident ring of 4 seeded uint8 batches, 1024 frames;
 5. tracked crop: ``estimate_pose_dynamic`` at 747x832 with a (408, 448)
    window and chunk 128 over 1024 frames of a seeded moving blob;
-6. profile: where the device time goes, from torch.profiler over 3
-   full-frame batches and 3 tracked-crop steps (device ms per batch by
-   kernel class, device busy share);
-7. the ``{"kernels": [...]}`` line;
-8. ``{"ok": true, "device": {...}}``.
+6. mm: the int8 GEMM kernel's ``mm_tiled`` (the port of ``pallas_mm``)
+   against its plain version at the probe's 4096^3, int8 -> int32 and
+   bf16 -> f32 exactly on the probe's small-integer operands, and bf16
+   within 1e-5 of the largest |value| on normal ones; timed by CUDA-graph
+   replay beside its bound, the plain version and the library product
+   (``torch._int_mm``; ``torch.matmul`` for bf16, which writes bf16);
+7. quantize: ``quantize_model`` of the f32 model on 16 seeded frames;
+8. int8 full-frame and int8 residual full-frame: the int8 model at batch
+   128 over 1024 frames; logits on the f32 phase's 4 frames against the
+   f32 model (relative error < 0.25 and correlation > 0.99, the bounds of
+   tests/test_quant.py) and px against the f32 and bf16 models;
+9. int8_conv: each distinct conv of one int8 full-frame batch timed at
+   its shape beside its bound, its launches per batch, the plain
+   version's time, and ``torch._int_mm`` for the 1x1 stride-1 sites;
+10. int8 tracked crop: ``estimate_pose_dynamic`` with the int8 model.
+   Each int8 path's first batch (full-frame chunks and crops for the
+   tracker), before its counted run, holds every conv it launches against
+   the plain version on that conv's own input: int32 exact, the call's
+   own output within 1 bf16 ulp or +-1 on at most 1e-4 of the int8
+   values;
+11. profile: where the device time goes, from torch.profiler over 3
+    full-frame batches, 3 tracked-crop steps and 3 int8 full-frame
+    batches (device ms per batch by kernel class, device busy share);
+12. the ``{"kernels": [...]}`` line;
+13. ``{"ok": true, "device": {...}}``.
 
 Every kernel wrapper counts its launches; the counts are set to 0 just
-before each of phases 4 and 5 and read just after, and each must be > 0.
-The weights are random, from a seeded torch.Generator; nothing is read
-from disk but the repository's own sources.
+before each main-path run (phases 4, 5, 8 and 10) and read just after,
+and every kernel that the path runs must show launches > 0. The weights
+are random, from a seeded torch.Generator; nothing is read from disk but
+the repository's own sources.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -53,6 +75,13 @@ FRAMES = 1024
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 F32_OPS_PER_S = 67e12         # H100 SXM, float32 outside the tensor cores
+INT8_OPS_PER_S = 1979e12      # H100 SXM, int8 tensor cores, dense
+BF16_OPS_PER_S = 989e12       # H100 SXM, bf16 tensor cores, dense
+CALIB_FRAMES = 16
+CHECK_FRAMES = 32             # frames per plain slice of a checked conv
+MM_SIZE = 4096                # the probe's M = N = K
+# int8 model against the f32 one (tests/test_quant.py:69-74)
+INT8_REL_ERR, INT8_CORR = 0.25, 0.99
 MU_TOL, LIK_TOL = 1e-4, 1e-5
 # card vs CPU float32 logits, relative to the largest logit: both sum the
 # convolutions in float32, in different orders and algorithms
@@ -302,7 +331,7 @@ def phase_full_frame(cfg, device, model_f32, images4, mu_f32, pred_f32):
     if (launches <= 0 or not ok or not np.isfinite(bf16_px["max"])
             or not np.isfinite(bf16_logit_rel)):
         raise AssertionError(f"full-frame path failed: {out}")
-    return model, launches
+    return model, launches, mu_bf16
 
 
 def moving_blob_frames(n: int):
@@ -352,13 +381,416 @@ def phase_tracked_crop(cfg, device, model):
     return launches
 
 
+def reset_launches() -> None:
+    from deepgraphpose_tpu_torch.ops.kernels import (int8_gemm_kernel,
+                                                     softargmax_kernel)
+
+    softargmax_kernel.launches = 0
+    for name in int8_gemm_kernel.launches:
+        int8_gemm_kernel.launches[name] = 0
+
+
+def read_launches() -> dict:
+    from deepgraphpose_tpu_torch.ops.kernels import (int8_gemm_kernel,
+                                                     softargmax_kernel)
+
+    return {"softargmax_likelihood": softargmax_kernel.launches,
+            **int8_gemm_kernel.launches}
+
+
+def op_bound(ops: float, n_bytes: float, ops_per_s: float) -> dict:
+    """Least time for ``ops`` tensor-core operations at the dense peak and
+    ``n_bytes`` moved (each input read once, each output written once)."""
+    bound = {"bytes": 1e3 * n_bytes / HBM_BYTES_PER_S,
+             "operations": 1e3 * ops / ops_per_s}
+    bound_by = max(bound, key=bound.get)
+    return {"bound_ms": bound[bound_by], "bound_by": bound_by}
+
+
+def eager_ms(fn, x) -> float:
+    """Device ms of one call after a warm-up call (for the plain versions,
+    whose float64 convolutions allocate too much to capture many times)."""
+    import torch
+
+    fn(x)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn(x)
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop)
+
+
+def library_ms(fn, inputs, reps: int):
+    """Time of a PyTorch yardstick, or its error if it refuses the shape."""
+    try:
+        return time_ms(fn, inputs, reps), None
+    except RuntimeError as err:
+        return None, str(err).splitlines()[0][:200]
+
+
+def phase_mm(device) -> dict:
+    """mm_tiled at the probe's 4096^3 against its plain version, timed
+    beside its bound, the plain version and the library product."""
+    import numpy as np
+    import torch
+
+    from deepgraphpose_tpu_torch.ops import int8_gemm as plain
+    from deepgraphpose_tpu_torch.ops.kernels import int8_gemm_kernel as gk
+
+    n = MM_SIZE
+    rng = np.random.default_rng(SEED + 6)
+
+    def ints():   # the probe's operands (scripts/int8_conv_probe.py:125)
+        return torch.from_numpy(rng.integers(-8, 8, (n, n), dtype=np.int8)
+                                ).to(device)
+
+    a8 = [ints(), ints()]
+    b8 = ints()
+    abf, bbf = [a.to(torch.bfloat16) for a in a8], b8.to(torch.bfloat16)
+    errors = {}
+    for name, a, b in (("int8", a8[0], b8), ("bf16", abf[0], bbf)):
+        got, want = gk.mm(a, b), plain.mm(a, b)
+        torch.cuda.synchronize()
+        errors[name] = (got.double() - want.double()).abs().max().item()
+    # bf16 on normal values: the kernel sums in float32, plain in float64
+    an = torch.from_numpy(rng.standard_normal((n, n), np.float32)).to(
+        device, torch.bfloat16)
+    bn = torch.from_numpy(rng.standard_normal((n, n), np.float32)).to(
+        device, torch.bfloat16)
+    got, want = gk.mm(an, bn), plain.mm(an, bn)
+    torch.cuda.synchronize()
+    bf16_normal_rel = ((got - want).abs().max() / want.abs().max()).item()
+    del got, want, an, bn
+
+    int8_lib, int8_lib_err = library_ms(
+        lambda a: torch._int_mm(a, b8), a8, 20)
+    bf16_lib, _ = library_ms(lambda a: torch.matmul(a, bbf), abf, 20)
+    out = {
+        "phase": "mm", "shape": [n, n, n],
+        "max_abs_err_int8": errors["int8"], "max_abs_err_bf16": errors["bf16"],
+        "bf16_normal_rel_err": bf16_normal_rel,
+        "int8": {"ms": time_ms(lambda a: gk.mm(a, b8), a8, 20),
+                 "plain_ms": eager_ms(lambda a: plain.mm(a, b8), a8[0]),
+                 "library_ms": int8_lib, "library": "torch._int_mm",
+                 "library_error": int8_lib_err,
+                 **op_bound(2.0 * n ** 3, 6 * n * n, INT8_OPS_PER_S)},
+        "bf16": {"ms": time_ms(lambda a: gk.mm(a, bbf), abf, 20),
+                 "plain_ms": eager_ms(lambda a: plain.mm(a, bbf), abf[0]),
+                 "library_ms": bf16_lib,
+                 "library": "torch.matmul (writes bf16)",
+                 **op_bound(2.0 * n ** 3, 8 * n * n, BF16_OPS_PER_S)},
+    }
+    for key in ("int8", "bf16"):
+        out[key]["tops"] = 2.0 * n ** 3 / out[key]["ms"] / 1e9
+    emit(out)
+    if errors["int8"] != 0 or errors["bf16"] != 0 or bf16_normal_rel > 1e-5:
+        raise AssertionError(f"mm_tiled disagrees with plain: {out}")
+    return out
+
+
+def calib_frames(n: int):
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 5)
+    return rng.integers(0, 256, (n, *HW, 3), dtype=np.uint8)
+
+
+def phase_quantize(cfg, model_f32, residual: bool):
+    """quantize_model of the f32 model on CALIB_FRAMES seeded frames."""
+    import torch
+
+    from deepgraphpose_tpu_torch.models.quant import quantize_model
+
+    t0 = time.perf_counter()
+    qmodel = quantize_model(cfg, model_f32, calib_frames(CALIB_FRAMES),
+                            dtype=torch.bfloat16, residual_int8=residual)
+    torch.cuda.synchronize()
+    return qmodel, time.perf_counter() - t0
+
+
+SIGNATURE = ("route", "k", "cin", "cout", "stride", "rate", "in_hw", "in",
+             "out", "relu")
+
+
+@contextlib.contextmanager
+def checked_convs(qmodel, path: str, calls: list):
+    """Within the block, each int8 conv of ``qmodel`` launches as its path
+    launches it; the first call of each (site, input shape and type,
+    output) is then held on that same input against the plain version:
+    the int32 accumulator exactly (the kernel once more, with an int32
+    store), and the call's own output within one bf16 ulp (a float store)
+    or +-1 on at most 1e-4 of the values (an int8 store: ties of the
+    requantization). The plain version runs CHECK_FRAMES frames at a time.
+    Each checked call is appended to ``calls``; a disagreement raises. The
+    checking launches happen inside the block only, so a run that counts
+    launches keeps them out."""
+    import torch
+
+    from deepgraphpose_tpu_torch.ops import int8_gemm as plain
+    from deepgraphpose_tpu_torch.ops.kernels import int8_gemm_kernel as gk
+
+    site_of = {q.qw.data_ptr(): name for name, q in qmodel.sites.items()}
+    kernel = gk.conv_int8
+    seen = set()
+
+    def conv(x, w, k, stride, rate, pad, oscale, bias, relu, out,
+             in_scale=None):
+        y = kernel(x, w, k, stride, rate, pad, oscale, bias, relu, out,
+                   in_scale)
+        site = site_of[w.data_ptr()]
+        kind = "int8" if isinstance(out, tuple) else str(out).split(".")[-1]
+        key = (site, tuple(x.shape), x.dtype, kind)
+        if key in seen:
+            return y
+        seen.add(key)
+        args = (w, k, stride, rate, pad, oscale, bias, relu)
+        acc = kernel(x, *args, torch.int32, in_scale)
+        acc_err, step, differing, within = 0.0, 0.0, 0, True
+        for i in range(0, x.shape[0], CHECK_FRAMES):
+            part = slice(i, i + CHECK_FRAMES)
+            want_acc = plain.conv_int8(x[part], *args, torch.int32, in_scale)
+            if not torch.equal(acc[part], want_acc):
+                acc_err = max(acc_err, (acc[part].double() - want_acc.double()
+                                        ).abs().max().item())
+            want = plain.epilogue(want_acc, oscale, bias, relu, out).float()
+            diff = (y[part].float() - want).abs()
+            step = max(step, diff.max().item())
+            within = within and bool((diff <= want.abs() * 2.0 ** -7).all())
+            differing += int((diff != 0).sum().item())
+            del want_acc, want, diff
+        del acc
+        share = differing / y.numel()
+        entry = {
+            "path": path, "site": site,
+            "route": ("mm_tiled" if k == 1 and stride == 1 and pad == 0
+                      else "conv_int8"),
+            "k": k, "cin": x.shape[-1], "cout": w.shape[1], "stride": stride,
+            "rate": rate, "batch": x.shape[0], "in_hw": list(x.shape[1:3]),
+            "out_hw": list(y.shape[1:3]), "in": str(x.dtype).split(".")[-1],
+            "out": kind, "relu": bool(relu), "acc_err": acc_err,
+            "differing_share": share,
+            "replay": (k, stride, rate, pad, relu, out, in_scale)}
+        calls.append(entry)
+        ok = (step <= 1 and share <= 1e-4) if kind == "int8" else within
+        if acc_err != 0 or not ok:
+            raise AssertionError(
+                f"{path} {site} {tuple(x.shape)} {entry['in']} -> {kind}: "
+                f"kernel vs plain: int32 error {acc_err}, largest output "
+                f"difference {step}, differing share {share}")
+        return y
+
+    gk.conv_int8 = conv
+    try:
+        yield
+    finally:
+        gk.conv_int8 = kernel
+
+
+def check_summary(calls) -> dict:
+    return {"convs_checked": len(calls),
+            "by_route": {r: sum(c["route"] == r for c in calls)
+                         for r in ("mm_tiled", "conv_int8")},
+            "max_abs_err_int32": max(c["acc_err"] for c in calls),
+            "max_epilogue_differing_share": max(c["differing_share"]
+                                                for c in calls)}
+
+
+def phase_int8_conv(device, qmodel, calls) -> dict:
+    """Each distinct conv of one int8 full-frame batch (the calls that
+    ``checked_convs`` recorded) timed at its shape on seeded inputs of its
+    type, with its launches per batch, its bound, the plain version's
+    time, and ``torch._int_mm`` for the 1x1 stride-1 sites."""
+    import torch
+
+    from deepgraphpose_tpu_torch.ops import int8_gemm as plain
+    from deepgraphpose_tpu_torch.ops.kernels import int8_gemm_kernel as gk
+
+    distinct: dict = {}
+    for c in calls:
+        distinct.setdefault(tuple(str(c[f]) for f in SIGNATURE),
+                            [c, 0])[1] += 1
+    gen = torch.Generator(device=device).manual_seed(SEED + 7)
+    sites = []
+    for c, count in distinct.values():
+        q = qmodel.sites[c["site"]]
+        k, stride, rate, pad, relu, out, in_scale = c["replay"]
+        b, (h, w), cin, cout = c["batch"], c["in_hw"], c["cin"], c["cout"]
+        (oh, ow), wide = c["out_hw"], c["in"] != "int8"
+
+        def run(x, fn=gk.conv_int8):
+            return fn(x, q.qw, k, stride, rate, pad, q.oscale, q.bias, relu,
+                      out, in_scale)
+
+        def ints():
+            if wide:    # about the calibrated range, some clipped
+                return (torch.randn((b, h, w, cin), generator=gen,
+                                    device=device) * (40 * in_scale)
+                        ).to(getattr(torch, c["in"]))
+            return torch.randint(-127, 128, (b, h, w, cin), generator=gen,
+                                 dtype=torch.int8, device=device)
+
+        ring = [ints(), ints()]
+        m = b * oh * ow
+        entry = {key: c[key] for key in ("site", "route", "k", "cin", "cout",
+                                         "stride", "rate", "in_hw", "out_hw",
+                                         "in", "out")}
+        entry["launches_per_batch"] = count
+        entry["ms"] = time_ms(run, ring, 5)
+        # input, weight, scale and bias read once; output written once
+        entry.update(op_bound(
+            2.0 * m * cout * k * k * cin,
+            b * h * w * cin * ring[0].element_size() + k * k * cin * cout
+            + 8 * cout + m * cout * (1 if c["out"] == "int8" else 2),
+            INT8_OPS_PER_S))
+        entry["tops"] = 2.0 * m * cout * k * k * cin / entry["ms"] / 1e9
+        torch.cuda.empty_cache()
+        entry["plain_ms"] = eager_ms(lambda x: run(x, fn=plain.conv_int8),
+                                     ring[0])
+        torch.cuda.empty_cache()
+        if c["route"] == "mm_tiled":     # on int8 input, as _int_mm takes it
+            ring8 = [torch.randint(-127, 128, (b, h, w, cin), generator=gen,
+                                   dtype=torch.int8, device=device)
+                     for _ in ring]
+            entry["library_ms"], entry["library_error"] = library_ms(
+                lambda x: torch._int_mm(x.view(-1, cin), q.qw), ring8, 5)
+            del ring8
+        else:
+            entry["library_ms"] = None
+        sites.append(entry)
+        del ring
+        torch.cuda.empty_cache()
+
+    def per_batch(route):
+        mine = [s for s in sites if s["route"] == route]
+        out = {}
+        for key in ("ms", "bound_ms", "plain_ms", "library_ms"):
+            vals = [s[key] for s in mine]
+            out[key] = None if None in vals else sum(
+                v * s["launches_per_batch"] for v, s in zip(vals, mine))
+        by = {}
+        for s in mine:
+            by[s["bound_by"]] = (by.get(s["bound_by"], 0.0)
+                                 + s["bound_ms"] * s["launches_per_batch"])
+        out["bound_by"] = max(by, key=by.get)
+        out["launches_per_batch"] = sum(s["launches_per_batch"] for s in mine)
+        return out
+
+    out = {"phase": "int8_conv", "batch": BATCH, "hw": list(HW),
+           "per_batch": {route: per_batch(route)
+                         for route in ("mm_tiled", "conv_int8")},
+           "sites": sites}
+    emit(out)
+    return out
+
+
+def phase_int8_full_frame(cfg, device, qmodel, name, images4, pred_f32,
+                          mu_f32, mu_bf16):
+    """The int8 model at batch 128 over 1024 frames, with its logits and
+    px against the f32 (and px against the bf16) model. Its first batch,
+    before the counted run, holds every conv against the plain version
+    (``checked_convs``). Returns (the phase's line, the checked calls)."""
+    import numpy as np
+    import torch
+
+    from deepgraphpose_tpu_torch.infer.predict import (infer_forward,
+                                                       make_infer_fn)
+
+    with torch.inference_mode():
+        pred = qmodel(images4, heads=("part_pred",))["part_pred"]
+    mu_q, _ = infer_forward(qmodel, cfg, images4)
+    f, q = pred_f32.double(), pred.double()
+    rel = ((q - f).abs().max() / f.abs().max()).item()
+    corr = float(np.corrcoef(f.cpu().numpy().ravel(),
+                             q.cpu().numpy().ravel())[0, 1])
+    px = {}
+    for ref_name, ref in (("f32", mu_f32), ("bf16", mu_bf16)):
+        err = (mu_q - ref).abs() * cfg.stride
+        px[ref_name] = {"max": err.max().item(), "mean": err.mean().item()}
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 2)
+    ring = [torch.randint(0, 256, (BATCH, *HW, 3), generator=gen,
+                          dtype=torch.uint8, device=device) for _ in range(4)]
+    infer = make_infer_fn(qmodel, cfg)
+    calls: list = []
+    with checked_convs(qmodel, name, calls):
+        infer(ring[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    outs = [infer(ring[i % len(ring)]) for i in range(FRAMES // BATCH)]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = read_launches()
+    mu, lik = outs[-1]
+    ok = (tuple(mu.shape) == (BATCH, NUM_JOINTS, 2)
+          and bool(torch.isfinite(mu).all()) and bool(torch.isfinite(lik).all())
+          and bool(((lik >= 0) & (lik <= 1)).all()))
+    out = {"phase": name, "dtype": "int8 backbone, bfloat16 heads",
+           "residual_int8": qmodel.residual_int8, "batch": BATCH,
+           "hw": list(HW), "frames": FRAMES, "seconds": dt,
+           "frames_per_s": FRAMES / dt, "launches": launches,
+           "logits_vs_f32": {"rel_err": rel, "corr": corr},
+           "px_vs": px, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "checked": check_summary(calls)}
+    emit(out)
+    if (not ok or min(launches.values()) <= 0 or not rel < INT8_REL_ERR
+            or not corr > INT8_CORR):
+        raise AssertionError(f"{name} failed: {out}")
+    return out, calls
+
+
+def phase_int8_tracked_crop(cfg, device, qmodel):
+    """``estimate_pose_dynamic`` with the int8 model. The warm-up run, on
+    the first 4 chunks (full-frame chunks, then crops), holds every conv
+    against the plain version (``checked_convs``), the crop's shapes
+    included. Returns (the phase's line, the checked calls)."""
+    import numpy as np
+    import torch
+
+    from deepgraphpose_tpu_torch.infer.dynamic import estimate_pose_dynamic
+
+    frames = moving_blob_frames(FRAMES)
+    kw = dict(crop_hw=CROP_HW, chunk=BATCH, device=device)
+    calls: list = []
+    with checked_convs(qmodel, "int8_tracked_crop", calls):
+        estimate_pose_dynamic(qmodel, cfg, frames[:4 * BATCH], **kw)
+    torch.cuda.synchronize()
+    stem_hw = sorted({tuple(c["in_hw"]) for c in calls
+                      if c["site"] == "conv1"})
+    reset_launches()
+    t0 = time.perf_counter()
+    res = estimate_pose_dynamic(qmodel, cfg, frames, **kw)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = read_launches()
+    ok = (res["mu"].shape == (FRAMES, NUM_JOINTS, 2)
+          and np.isfinite(res["mu"]).all()
+          and np.isfinite(res["likelihoods"]).all())
+    out = {"phase": "int8_tracked_crop", "chunk": BATCH, "hw": list(HW),
+           "crop_hw": list(CROP_HW), "frames": FRAMES, "seconds": dt,
+           "frames_per_s": FRAMES / dt,
+           "cropped_share": float(res["cropped"].mean()),
+           "launches": launches, "checked": check_summary(calls),
+           "checked_stem_in_hw": stem_hw}
+    emit(out)
+    if min(launches.values()) <= 0 or not ok or CROP_HW not in stem_hw:
+        raise AssertionError(f"int8 tracked-crop path failed: {out}")
+    return out, calls
+
+
 def kernel_class(name: str) -> str:
-    """Sort a device kernel's name into convolution, elementwise, copy,
-    decode or other."""
+    """Sort a device kernel's name into decode, int8_gemm (the port's int8
+    GEMM, matched before the library GEMMs), convolution, elementwise,
+    copy or other."""
     import re
 
     for label, pattern in (
             ("decode", r"softargmax_likelihood"),
+            ("int8_gemm", r"gemm_kernel<|gemm_kernelI"),
             ("convolution",
              r"(?i)conv|cudnn|xmma|implicit|gemm|wgrad|dgrad|fprop|sm90"),
             ("copy", r"(?i)copy|memcpy|memset|cat|pad"),
@@ -426,9 +858,10 @@ def profile_path(name: str, step, batches: int) -> dict:
     }
 
 
-def phase_profile(cfg, device, model, batches: int = 3) -> None:
+def phase_profile(cfg, device, model, qmodel, batches: int = 3) -> None:
     """Where the device time goes: full-frame batches and tracked-crop
-    steps (the crop step alone, at a fixed center) of the bf16 model."""
+    steps (the crop step alone, at a fixed center) of the bf16 model, and
+    full-frame batches of the int8 model."""
     import torch
 
     from deepgraphpose_tpu_torch.infer.dynamic import make_crop_infer_fn
@@ -440,8 +873,10 @@ def phase_profile(cfg, device, model, batches: int = 3) -> None:
     full = make_infer_fn(model, cfg)
     crop = make_crop_infer_fn(model, cfg, CROP_HW)
     center = (HW[0] / 2, HW[1] / 2)
+    full_int8 = make_infer_fn(qmodel, cfg)
     for name, step in (("full_frame", lambda: full(frames)),
-                       ("tracked_crop", lambda: crop(frames, center))):
+                       ("tracked_crop", lambda: crop(frames, center)),
+                       ("int8_full_frame", lambda: full_int8(frames))):
         emit(profile_path(name, step, batches))
 
 
@@ -476,20 +911,48 @@ def main() -> int:
     generator = torch.Generator().manual_seed(SEED)
     kern = phase_kernel(cfg, device)
     model_f32, images4, mu_f32, pred_f32 = phase_f32(cfg, device, generator)
-    model, full_launches = phase_full_frame(cfg, device, model_f32, images4,
-                                            mu_f32, pred_f32)
-    del model_f32, pred_f32
+    model, full_launches, mu_bf16 = phase_full_frame(
+        cfg, device, model_f32, images4, mu_f32, pred_f32)
     crop_launches = phase_tracked_crop(cfg, device, model)
-    phase_profile(cfg, device, model)
+    mm = phase_mm(device)
 
+    qmodel, seconds = phase_quantize(cfg, model_f32, residual=False)
+    emit({"phase": "quantize", "calib_frames": CALIB_FRAMES, "hw": list(HW),
+          "seconds": seconds, "sites": len(qmodel.sites)})
+    int8_paths, checks = {}, []
+    path, calls = phase_int8_full_frame(
+        cfg, device, qmodel, "int8_full_frame", images4, pred_f32, mu_f32,
+        mu_bf16)
+    int8_paths["int8_full_frame"] = path
+    checks += calls
+    conv = phase_int8_conv(device, qmodel, calls)
+    path, calls = phase_int8_tracked_crop(cfg, device, qmodel)
+    int8_paths["int8_tracked_crop"] = path
+    checks += calls
+    rmodel, _ = phase_quantize(cfg, model_f32, residual=True)
+    path, calls = phase_int8_full_frame(
+        cfg, device, rmodel, "int8_residual_full_frame", images4, pred_f32,
+        mu_f32, mu_bf16)
+    int8_paths["int8_residual_full_frame"] = path
+    checks += calls
+    del rmodel, model_f32, pred_f32
+    phase_profile(cfg, device, model, qmodel)
+
+    by_path = {name: path["launches"] for name, path in int8_paths.items()}
+    decode_by_path = {"full_frame": full_launches,
+                      "tracked_crop": crop_launches,
+                      **{name: counts["softargmax_likelihood"]
+                         for name, counts in by_path.items()}}
     main_shape = kern["shapes"][0]          # the full-frame maps
+    conv_int8 = conv["per_batch"]["conv_int8"]
+    acc_err = {r: max(c["acc_err"] for c in checks if c["route"] == r)
+               for r in ("mm_tiled", "conv_int8")}
     emit({"kernels": [{
         "name": "softargmax_likelihood", "route": "cuda",
         "source": "deepgraphpose_tpu_torch/csrc/softargmax.cu",
         "replaces": "deepgraphpose_tpu/ops/pallas/softargmax_kernel.py:89",
-        "launches": full_launches + crop_launches,
-        "launches_full_frame": full_launches,
-        "launches_tracked_crop": crop_launches,
+        "launches": sum(decode_by_path.values()),
+        "launches_by_path": decode_by_path,
         "max_abs_err": max(kern["max_abs_err_mu"], kern["max_abs_err_lik"]),
         "max_abs_err_mu": kern["max_abs_err_mu"],
         "max_abs_err_lik": kern["max_abs_err_lik"],
@@ -498,6 +961,30 @@ def main() -> int:
         "library_ms": None,
         "shapes": [{k: d[k] for k in ("shape", "ms", "plain_ms", "bound_ms",
                                       "bound_by")} for d in kern["shapes"]],
+    }, {
+        "name": "mm_tiled", "route": "cuda",
+        "source": "deepgraphpose_tpu_torch/csrc/int8_gemm.cu",
+        "replaces": "scripts/int8_conv_probe.py:179",
+        "launches": sum(c["mm_tiled"] for c in by_path.values()),
+        "launches_by_path": {n: c["mm_tiled"] for n, c in by_path.items()},
+        "max_abs_err": max(mm["max_abs_err_int8"], mm["max_abs_err_bf16"],
+                           acc_err["mm_tiled"]),
+        "shape": mm["shape"],
+        **{k: mm["int8"][k] for k in ("ms", "plain_ms", "bound_ms",
+                                      "bound_by", "library_ms")},
+        "bf16": {k: mm["bf16"][k] for k in ("ms", "plain_ms", "bound_ms",
+                                            "bound_by", "library_ms")},
+        "conv_sites_per_batch": conv["per_batch"]["mm_tiled"],
+    }, {
+        "name": "conv_int8", "route": "cuda",
+        "source": "deepgraphpose_tpu_torch/csrc/int8_gemm.cu",
+        "replaces": "scripts/int8_conv_probe.py:179",
+        "launches": sum(c["conv_int8"] for c in by_path.values()),
+        "launches_by_path": {n: c["conv_int8"] for n, c in by_path.items()},
+        "max_abs_err": acc_err["conv_int8"],
+        "unit": "per 128-frame batch: the sum over its sites' launches",
+        **{k: conv_int8[k] for k in ("ms", "plain_ms", "bound_ms",
+                                     "bound_by", "library_ms")},
     }]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -18,6 +18,9 @@ Weights bridge (:func:`state_dict_from_flax`):
   ``batch_stats/{mean, var}`` keep their names;
 * the backbone subtree, auto-named by flax inside ``PoseModel``, becomes
   the port's ``backbone`` attribute.
+
+:func:`quant_state_from_flax` bridges the JAX package's int8 variables
+(``models/quant.py::quantize_model``) to the port's ``QuantizedPoseModel``.
 """
 
 from __future__ import annotations
@@ -99,11 +102,17 @@ def state_dict_from_flax(variables: dict) -> dict[str, torch.Tensor]:
     backbones = sorted(tops - set(HEAD_NAMES))
     if len(backbones) != 1:
         raise ValueError(f"expected one backbone subtree, found {backbones}")
+    return _torch_state(variables, backbones[0])
+
+
+def _torch_state(variables: dict, backbone: str | None = None) -> dict:
+    """The leaves of a flax tree as torch state; ``backbone`` names the
+    subtree that becomes the ``backbone`` attribute."""
     out = {}
     for collection in ("params", "batch_stats"):
         for path, leaf in _flatten(variables.get(collection, {})):
             arr = torch.from_numpy(np.array(leaf, dtype=np.float32))
-            top = "backbone" if path[0] == backbones[0] else path[0]
+            top = "backbone" if path[0] == backbone else path[0]
             *mods, name = (top,) + tuple(path[1:])
             if name == "kernel":
                 if path[0] in HEAD_NAMES:       # nn.ConvTranspose
@@ -115,4 +124,29 @@ def state_dict_from_flax(variables: dict) -> dict[str, torch.Tensor]:
             if key in out:
                 raise ValueError(f"two flax leaves map to {key}")
             out[key] = arr.contiguous()
+    return out
+
+
+def quant_state_from_flax(qvariables: dict) -> dict:
+    """The JAX package's ``quantize_model`` variables, as numpy, -> the
+    port's ``QuantizedPoseModel`` state_dict.
+
+    Each site's int8 HWIO kernel becomes the GEMM kernel's (K = kh*kw*Cin,
+    N = Cout) matrix; ``oscale`` and ``bias`` carry over as float32, and
+    the calibrated input scale as a Python float (the site's extra state,
+    never a device tensor). The heads map as in :func:`state_dict_from_flax`.
+    """
+    out = _torch_state({"params": qvariables["heads"]})
+    for site, w in qvariables["qw"].items():
+        w = np.asarray(w)
+        if w.dtype != np.int8 or w.ndim != 4:
+            raise ValueError(f"{site}: expected an int8 HWIO kernel, got "
+                             f"{w.dtype} {w.shape}")
+        out[f"sites.{site}.qw"] = torch.from_numpy(
+            w.reshape(-1, w.shape[-1]).copy())
+        for key in ("oscale", "bias"):
+            out[f"sites.{site}.{key}"] = torch.from_numpy(
+                np.array(qvariables[key][site], dtype=np.float32))
+        out[f"sites.{site}._extra_state"] = {
+            "act_scale": float(np.float32(qvariables["act_scale"][site]))}
     return out

@@ -224,9 +224,12 @@ def estimate_pose_dynamic_video(proj_cfg_file, dgp_model_file, video_file,
                                 max_frames: int | None = None,
                                 save_pose: bool = True,
                                 save_str: str = "",
-                                quantize: bool = False,
+                                quantize: bool | str = False,
                                 device=None) -> dict:
-    """GetPoseDynamic-equivalent over a video file, with DLC export."""
+    """GetPoseDynamic-equivalent over a video file, with DLC export.
+
+    ``quantize=True`` (or ``"residual"``) runs the int8 model, calibrated
+    on the video's first 8 frames (``models/quant.py``)."""
     from deepgraphpose_tpu_torch.core.device import resolve_dtype
     from deepgraphpose_tpu_torch.core.paths import resolve_project
     from deepgraphpose_tpu_torch.data.video import (VideoReader,
@@ -234,14 +237,19 @@ def estimate_pose_dynamic_video(proj_cfg_file, dgp_model_file, video_file,
     from deepgraphpose_tpu_torch.infer.export import export_pose_like_dlc
     from deepgraphpose_tpu_torch.infer.predict import load_model
 
-    if quantize:
-        raise NotImplementedError(
-            "int8 inference (quantize=...) waits for the int8 slice of the "
-            "port (models/quant.py)")
     device = resolve_device(device)
     _, cfg, _ = resolve_project(Path(proj_cfg_file).parent, shuffle)
-    model = load_model(cfg, dgp_model_file, resolve_dtype(cfg.compute_dtype),
-                       device)
+    dtype = resolve_dtype(cfg.compute_dtype)
+    model = load_model(cfg, dgp_model_file,
+                       torch.float32 if quantize else dtype, device)
+    if quantize:
+        from deepgraphpose_tpu_torch.models.quant import (
+            calib_frames_from_video, quantize_model)
+
+        model = quantize_model(cfg, model,
+                               calib_frames_from_video(video_file),
+                               dtype=dtype,
+                               residual_int8=(quantize == "residual"))
     reader = VideoReader(video_file)
     n = min(reader.n_frames, max_frames) if max_frames else reader.n_frames
 

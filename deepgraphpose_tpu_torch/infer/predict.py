@@ -38,6 +38,7 @@ from deepgraphpose_tpu_torch.data.video import VideoReader
 from deepgraphpose_tpu_torch.infer.export import (export_pose_like_dlc,
                                                   load_pose_from_dlc)
 from deepgraphpose_tpu_torch.models.pose_model import PoseModel
+from deepgraphpose_tpu_torch.models.quant import QuantizedPoseModel
 from deepgraphpose_tpu_torch.ops.kernels.softargmax_kernel import \
     softargmax_likelihood
 
@@ -127,12 +128,14 @@ def estimate_pose(proj_cfg_file: str | Path | None,
     exclusive with ``new_size``. ``crop`` (x0, y0, x1, y1) applies after any
     resize, so its box is in resized pixels; returned coordinates are
     original-video pixels in every combination.
+
+    ``quantize=True`` runs the int8 model (``models/quant.py``), calibrated
+    on the video's first ``calib_frames`` frames after any resize and crop;
+    ``quantize="residual"`` also carries the residual stream in int8. The
+    float weights are then read in float32. A ``QuantizedPoseModel`` passed
+    as ``model`` runs as it is and needs its state, in it or as
+    ``variables``.
     """
-    if quantize:
-        raise NotImplementedError(
-            "int8 inference (quantize=...) waits for the int8 slice of the "
-            "port (models/quant.py)")
-    del calib_frames  # used by the int8 path only
     device = resolve_device(device)
     video_file = Path(video_file)
     output_dir = Path(output_dir)
@@ -162,14 +165,29 @@ def estimate_pose(proj_cfg_file: str | Path | None,
         batch_size = pose_cfg.infer_batch_size
     dtype = resolve_dtype(compute_dtype if compute_dtype is not None
                           else pose_cfg.compute_dtype)
+    # the int8 model quantizes float32 weights, as the JAX package does
+    float_dtype = torch.float32 if quantize else dtype
     if model is None and variables is None:
-        model = load_model(pose_cfg, dgp_model_file, dtype, device)
+        model = load_model(pose_cfg, dgp_model_file, float_dtype, device)
     else:
         if model is None:
-            model = PoseModel(pose_cfg, dtype=dtype)
+            model = PoseModel(pose_cfg, dtype=float_dtype)
         if variables is not None:
             model.load_state_dict(variables)
+        elif isinstance(model, QuantizedPoseModel) and not model.has_state:
+            raise ValueError(
+                "estimate_pose(model=<quantized>) needs the model's "
+                "quantized state, in it or passed as variables= (or pass "
+                "quantize= and let estimate_pose quantize the snapshot)")
         model = model.to(device, memory_format=torch.channels_last).eval()
+    if quantize and not isinstance(model, QuantizedPoseModel):
+        from deepgraphpose_tpu_torch.models.quant import (
+            calib_frames_from_video, quantize_model)
+
+        calib = calib_frames_from_video(video_file, calib_frames,
+                                        new_size=new_size, crop=crop)
+        model = quantize_model(pose_cfg, model, calib, dtype=dtype,
+                               residual_int8=(quantize == "residual"))
     infer = make_infer_fn(model, pose_cfg)
 
     n_total = (min(reader.n_frames, max_frames) if max_frames

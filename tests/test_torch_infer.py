@@ -184,7 +184,7 @@ def test_entry_points_need_the_card_by_default(models, video, tmp_path,
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         dynamic.estimate_pose_dynamic(model, cfg,
                                       np.zeros((2, 64, 80, 3), np.uint8))
-    with pytest.raises(NotImplementedError, match="int8"):
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
         predict.estimate_pose(None, tmp_path / "s.ckpt", video, tmp_path,
                               pose_cfg=cfg, model=model, quantize=True,
-                              device="cpu")
+                              max_frames=2)

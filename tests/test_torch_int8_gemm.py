@@ -1,0 +1,188 @@
+"""The int8 GEMM's plain versions against the JAX package, on the CPU.
+
+The CUDA kernel ``csrc/int8_gemm.cu`` has two functions, and its wrapper
+takes the plain version for a CPU tensor, so these tests hold that plain
+version to what the JAX package computes:
+
+* ``mm``: ``pallas_mm``'s per-block body is ``jnp.dot(x, y,
+  preferred_element_type=acc)``. int8 -> int32 must be exact; bf16 -> f32
+  within 1e-6 of the largest |value| (both sum float32 products in other
+  orders; the plain version sums in float64 and rounds once).
+* ``conv_int8``: the int32 accumulator against ``quant._conv(...,
+  preferred=jnp.int32)`` at every kind of ResNet-50 site, exactly, with
+  the JAX package's own padding rule (``quant._pad_for``); then the fused
+  epilogue against ``conv_fn``'s (quant.py:300-306). XLA's CPU code
+  contracts ``acc * oscale + bias`` into one fused multiply-add, as the
+  kernel and the plain version do. The bounds are float32 within 1 ulp,
+  bf16 within 1 bf16 ulp and int8 within 1 at a rounding tie on at most
+  0.1% of the elements; measured, none of the 313,600 outputs of each
+  type differs.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from deepgraphpose_tpu.models import quant as jax_quant
+from deepgraphpose_tpu_torch.models import quant as port_quant
+from deepgraphpose_tpu_torch.ops.kernels import int8_gemm_kernel as kernel
+
+# (k, Cin, Cout, stride, rate): the kinds of ResNet-50 conv site
+SITES = {
+    "stem_7x7_s2": (7, 3, 64, 2, 1),
+    "1x1": (1, 64, 32, 1, 1),
+    "3x3_s2": (3, 32, 32, 2, 1),
+    "3x3_rate2": (3, 32, 32, 1, 2),
+    "3x3": (3, 32, 48, 1, 1),
+    "1x1_s2_shortcut": (1, 64, 128, 2, 1),
+}
+# even height: SAME and slim's conv2d_same pad a stride-2 conv differently
+IN_HW = (20, 23)
+
+
+def int8(rng, shape, lo=-127, hi=128):
+    return rng.integers(lo, hi, shape, dtype=np.int8)
+
+
+def bf16_values(rng, shape):
+    """float32 numpy values that are exactly bf16, and their torch bf16."""
+    t = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    t = t.to(torch.bfloat16)
+    return t.float().numpy(), t
+
+
+@pytest.mark.parametrize("shape", [(64, 96, 80), (37, 50, 29),
+                                   (256, 512, 128)])
+def test_mm_int8_exact(shape):
+    m, k, n = shape
+    rng = np.random.default_rng(0)
+    a, b = int8(rng, (m, k)), int8(rng, (k, n))
+    want = np.asarray(jnp.dot(jnp.asarray(a), jnp.asarray(b),
+                              preferred_element_type=jnp.int32))
+    before = dict(kernel.launches)
+    got = kernel.mm(torch.from_numpy(a), torch.from_numpy(b), torch.int32)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert kernel.launches == before     # the CPU runs the plain version
+
+
+@pytest.mark.parametrize("shape", [(64, 96, 80), (37, 50, 29),
+                                   (256, 512, 128)])
+def test_mm_bf16_f32(shape):
+    m, k, n = shape
+    rng = np.random.default_rng(1)
+    a, ta = bf16_values(rng, (m, k))
+    b, tb = bf16_values(rng, (k, n))
+    want = np.asarray(jnp.dot(jnp.asarray(a, jnp.bfloat16),
+                              jnp.asarray(b, jnp.bfloat16),
+                              preferred_element_type=jnp.float32))
+    got = kernel.mm(ta, tb)
+    assert got.dtype == torch.float32
+    assert (np.abs(got.numpy() - want).max()
+            <= 1e-6 * np.abs(want).max())
+
+
+def test_mm_rejects_mixed_and_wrong_accumulator():
+    a = torch.zeros(4, 8, dtype=torch.int8)
+    with pytest.raises(TypeError):
+        kernel.mm(a, a.T.to(torch.bfloat16))
+    with pytest.raises(TypeError):
+        kernel.mm(a, a.T.contiguous(), torch.float32)
+    with pytest.raises(ValueError):
+        kernel.mm(a, a)
+
+
+def jax_acc(x, w_hwio, stride, rate):
+    k = w_hwio.shape[0]
+    pad = jax_quant._pad_for(k, stride, rate)
+    return np.asarray(jax_quant._conv(jnp.asarray(x), jnp.asarray(w_hwio),
+                                      stride, rate, pad,
+                                      preferred=jnp.int32))
+
+
+def site_inputs(name, seed=0):
+    k, cin, cout, stride, rate = SITES[name]
+    rng = np.random.default_rng(seed)
+    x = int8(rng, (2, *IN_HW, cin))
+    w = int8(rng, (k, k, cin, cout))
+    return x, w, (k, stride, rate)
+
+
+@pytest.mark.parametrize("name", list(SITES))
+def test_conv_accumulator_exact(name):
+    x, w, (k, stride, rate) = site_inputs(name)
+    want = jax_acc(x, w, stride, rate)
+    pad = port_quant._pad_for(k, stride, rate)
+    got = kernel.conv_int8(torch.from_numpy(x),
+                           torch.from_numpy(w.reshape(-1, w.shape[-1])),
+                           k, stride, rate, pad, None, None, False,
+                           torch.int32)
+    assert got.shape == want.shape and got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def jax_epilogue(acc, oscale, bias, relu, out):
+    """quant.py:300-306, jitted as the model's conv_fn is."""
+    def f(acc, oscale, bias):
+        y = acc.astype(jnp.float32) * oscale + bias
+        if relu:
+            y = jax.nn.relu(y)
+        if isinstance(out, tuple):
+            return jax_quant._quantize_to(y, jnp.float32(out[1]))
+        return y.astype(out)
+    return np.asarray(jax.jit(f)(acc, oscale, bias).astype(jnp.float32))
+
+
+@pytest.mark.parametrize("name", list(SITES))
+def test_conv_epilogue_matches_jax(name):
+    x, w, (k, stride, rate) = site_inputs(name, seed=3)
+    acc = jax_acc(x, w, stride, rate)
+    cout = w.shape[-1]
+    rng = np.random.default_rng(4)
+    # scales of the size calibration gives: acc * oscale ~ O(1)
+    oscale = (rng.uniform(0.2, 1.0, cout) / np.abs(acc).max()).astype(
+        np.float32)
+    bias = rng.standard_normal(cout).astype(np.float32) * 0.1
+    args = (torch.from_numpy(x), torch.from_numpy(w.reshape(-1, cout)), k,
+            stride, rate, port_quant._pad_for(k, stride, rate),
+            torch.from_numpy(oscale), torch.from_numpy(bias))
+    for relu in (False, True):
+        want = jax_epilogue(acc, oscale, bias, relu, jnp.float32)
+        got = kernel.conv_int8(*args, relu, torch.float32).numpy()
+        ulp = np.spacing(np.abs(want).astype(np.float32))
+        assert (np.abs(got - want) <= ulp).all()
+
+        want = jax_epilogue(acc, oscale, bias, relu, jnp.bfloat16)
+        got = kernel.conv_int8(*args, relu, torch.bfloat16).float().numpy()
+        ulp_bf16 = np.abs(want) * 2.0 ** -7
+        assert (np.abs(got - want) <= ulp_bf16).all()
+
+        s_next = float(np.float32(1.0 / 127))
+        want = jax_epilogue(acc, oscale, bias, relu, ("int8", s_next))
+        got = kernel.conv_int8(*args, relu, ("int8", s_next))
+        assert got.dtype == torch.int8
+        diff = np.abs(got.numpy().astype(np.int32) - want.astype(np.int32))
+        assert diff.max() <= 1
+        assert (diff != 0).mean() <= 1e-3
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_conv_quantizes_wide_input(dtype):
+    """A 1x1 stride-1 conv takes its input wide with ``in_scale``: the same
+    as ``quant._quantize_to`` and then the int8 conv, exactly."""
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.standard_normal((2, 9, 11, 48)).astype(
+        np.float32) * 3).to(dtype)
+    w = int8(rng, (1, 1, 48, 40))
+    scale = float(np.float32(x.float().abs().max().item() / 127))
+    xq = jax_quant._quantize_to(jnp.asarray(x.float().numpy()),
+                                jnp.float32(scale))
+    want = jax_acc(np.asarray(xq), w, 1, 1)
+    got = kernel.conv_int8(x, torch.from_numpy(w.reshape(48, 40)), 1, 1, 1,
+                           0, None, None, False, torch.int32, in_scale=scale)
+    np.testing.assert_array_equal(got.numpy(), want)
+    with pytest.raises(ValueError, match="1x1 stride-1"):
+        kernel.conv_int8(x, torch.zeros(9 * 48, 8, dtype=torch.int8), 3, 1,
+                         1, 1, None, None, False, torch.int32, in_scale=scale)

@@ -69,7 +69,7 @@ def test_port_sources_name_no_jax():
 def test_kernel_source_is_in_the_package():
     from deepgraphpose_tpu_torch.ops.kernels import build
 
-    assert "softargmax" in build.sources()
+    assert {"softargmax", "int8_gemm"} <= set(build.sources())
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     assert build.BUILD_DIR == REPO / "build" / "kernels"
 
@@ -143,3 +143,150 @@ def test_kernel_rejects_what_it_does_not_take(cuda_device):
         kernel.softargmax_likelihood(x.half(), 1.0, 1.0)
     with pytest.raises(ValueError):
         kernel.softargmax_likelihood(x.permute(0, 2, 1, 3), 1.0, 1.0)
+
+
+# --------------------------------------------------------------------------
+# the int8 GEMM kernel (csrc/int8_gemm.cu) on the card
+# --------------------------------------------------------------------------
+
+# (k, Cin, Cout, stride, rate) at odd sizes: the ResNet-50 site kinds, and
+# channel counts that take the scalar (unaligned) load and store paths
+GEMM_SITES = [(7, 3, 64, 2, 1), (1, 64, 32, 1, 1), (3, 32, 32, 2, 1),
+              (3, 32, 48, 1, 2), (1, 64, 128, 2, 1), (3, 20, 29, 1, 1),
+              (1, 24, 40, 1, 1)]
+
+
+def _forbid_plain(monkeypatch):
+    """A CUDA tensor must launch the kernel: the plain versions raise."""
+    from deepgraphpose_tpu_torch.ops.kernels import int8_gemm_kernel
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    monkeypatch.setattr(int8_gemm_kernel.plain, "mm", refuse)
+    monkeypatch.setattr(int8_gemm_kernel.plain, "conv_int8", refuse)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(37, 50, 29), (128, 128, 128),
+                                   (300, 147, 64), (1000, 256, 520)])
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
+def test_mm_tiled_matches_plain(cuda_device, monkeypatch, shape, dtype):
+    """int8 -> int32 exactly; bf16 -> f32 within 1e-5 of the largest |value|
+    (the kernel sums float32 products in float32, the plain version in
+    float64)."""
+    from deepgraphpose_tpu_torch.ops import int8_gemm as gemm_plain
+    from deepgraphpose_tpu_torch.ops.kernels import int8_gemm_kernel as gk
+
+    m, k, n = shape
+    rng = np.random.default_rng(0)
+    if dtype == torch.int8:
+        a = torch.from_numpy(rng.integers(-127, 128, (m, k), dtype=np.int8))
+        b = torch.from_numpy(rng.integers(-127, 128, (k, n), dtype=np.int8))
+    else:
+        a = torch.from_numpy(rng.standard_normal((m, k), np.float32)).to(dtype)
+        b = torch.from_numpy(rng.standard_normal((k, n), np.float32)).to(dtype)
+    a, b = a.to(cuda_device), b.to(cuda_device)
+    want = gemm_plain.mm(a, b)
+    _forbid_plain(monkeypatch)
+    before = gk.launches["mm_tiled"]
+    got = gk.mm(a, b)
+    torch.cuda.synchronize()
+    assert gk.launches["mm_tiled"] == before + 1
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if dtype == torch.int8:
+        assert torch.equal(got, want)
+    else:
+        assert ((got - want).abs().max() <= 1e-5 * want.abs().max()).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("site", GEMM_SITES)
+def test_conv_int8_matches_plain(cuda_device, monkeypatch, site):
+    """Every output mode against the plain version on the card: int32
+    exactly; f32 within 1 ulp (both round the multiply-add once; the plain
+    float64 route can round twice, about once in 2^29); bf16 within 1 bf16
+    ulp; int8 within 1 on at most 1e-4 of the elements."""
+    from deepgraphpose_tpu_torch.models.quant import _pad_for
+    from deepgraphpose_tpu_torch.ops import int8_gemm as gemm_plain
+    from deepgraphpose_tpu_torch.ops.kernels import int8_gemm_kernel as gk
+
+    k, cin, cout, stride, rate = site
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.integers(-127, 128, (3, 21, 26, cin),
+                                      dtype=np.int8)).to(cuda_device)
+    w = torch.from_numpy(rng.integers(-127, 128, (k * k * cin, cout),
+                                      dtype=np.int8)).to(cuda_device)
+    acc_max = 127 * 127 * k * k * cin
+    oscale = torch.from_numpy(rng.uniform(0.2, 1.0, cout).astype(
+        np.float32) / np.float32(acc_max / 8)).to(cuda_device)
+    bias = torch.from_numpy(rng.standard_normal(cout).astype(
+        np.float32) * 0.1).to(cuda_device)
+    args = (x, w, k, stride, rate, _pad_for(k, stride, rate), oscale, bias)
+    outs = [torch.int32, torch.float32, torch.bfloat16, ("int8", 1 / 127)]
+    wants = {str(o): [gemm_plain.conv_int8(*args, relu, o)
+                      for relu in (False, True)] for o in outs}
+    _forbid_plain(monkeypatch)
+    launches = dict(gk.launches)
+    for o in outs:
+        for relu, want in zip((False, True), wants[str(o)]):
+            got = gk.conv_int8(*args, relu, o)
+            torch.cuda.synchronize()
+            assert got.shape == want.shape and got.dtype == want.dtype
+            if o == torch.int32:
+                assert torch.equal(got, want)
+            elif o == torch.float32:
+                ulp = torch.from_numpy(np.spacing(
+                    want.abs().cpu().numpy())).to(cuda_device)
+                assert ((got - want).abs() <= ulp).all().item()
+            elif o == torch.bfloat16:
+                err = (got.float() - want.float()).abs()
+                assert (err <= want.float().abs() * 2.0 ** -7).all().item()
+            else:
+                diff = (got.int() - want.int()).abs()
+                assert diff.max().item() <= 1
+                assert (diff != 0).float().mean().item() <= 1e-4
+    name = "mm_tiled" if (k == 1 and stride == 1) else "conv_int8"
+    assert gk.launches[name] == launches[name] + 8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,cout", [(64, 32), (24, 40), (256, 72)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_conv_int8_quantizes_wide_input_on_load(cuda_device, monkeypatch,
+                                                cin, cout, dtype):
+    """A wide 1x1 stride-1 input quantized by the kernel as it loads it
+    gives the plain quantize-then-conv accumulator exactly."""
+    from deepgraphpose_tpu_torch.ops import int8_gemm as gemm_plain
+    from deepgraphpose_tpu_torch.ops.kernels import int8_gemm_kernel as gk
+
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy(rng.standard_normal((3, 17, 22, cin)).astype(
+        np.float32) * 3).to(cuda_device, dtype)
+    w = torch.from_numpy(rng.integers(-127, 128, (cin, cout),
+                                      dtype=np.int8)).to(cuda_device)
+    scale = float(np.float32(x.float().abs().max().item() / 100))
+    args = (x, w, 1, 1, 1, 0, None, None, False, torch.int32)
+    want = gemm_plain.conv_int8(*args, in_scale=scale)
+    _forbid_plain(monkeypatch)
+    before = gk.launches["mm_tiled"]
+    got = gk.conv_int8(*args, in_scale=scale)
+    torch.cuda.synchronize()
+    assert gk.launches["mm_tiled"] == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_int8_gemm_rejects_what_it_does_not_take(cuda_device):
+    from deepgraphpose_tpu_torch.ops.kernels import int8_gemm_kernel as gk
+
+    a = torch.zeros(64, 32, dtype=torch.int8, device=cuda_device)
+    with pytest.raises(ValueError):
+        gk.mm(a.T, a)                    # not row-major contiguous
+    x = torch.zeros(2, 8, 8, 32, dtype=torch.int8, device=cuda_device)
+    w = torch.zeros(9 * 32, 16, dtype=torch.int8, device=cuda_device)
+    with pytest.raises(ValueError):
+        gk.conv_int8(x.permute(0, 2, 1, 3), w, 3, 1, 1, 1, None, None,
+                     False, torch.int32)
+    with pytest.raises(ValueError):
+        gk.conv_int8(x, w, 3, 1, 1, 1, None, None, False, torch.float32)
