@@ -28,16 +28,20 @@ last line is then never printed:
    against its plain version at the probe's 4096^3, int8 -> int32 and
    bf16 -> f32 exactly on the probe's small-integer operands, and bf16
    within 1e-5 of the largest |value| on normal ones; timed by CUDA-graph
-   replay beside its bound, the plain version and the library product
-   (``torch._int_mm``; ``torch.matmul`` for bf16, which writes bf16);
+   replay on a B transposed once to the (N, K) layout the kernel reads
+   (the transposition timed on a line of its own, ``mm_transpose``),
+   beside its bound, the plain version and the library product
+   (``torch._int_mm``; ``torch.matmul`` for bf16, which writes bf16),
+   with the kernel's ring depth;
 7. quantize: ``quantize_model`` of the f32 model on 16 seeded frames;
 8. int8 full-frame and int8 residual full-frame: the int8 model at batch
    128 over 1024 frames; logits on the f32 phase's 4 frames against the
    f32 model (relative error < 0.25 and correlation > 0.99, the bounds of
    tests/test_quant.py) and px against the f32 and bf16 models;
 9. int8_conv: each distinct conv of one int8 full-frame batch timed at
-   its shape beside its bound, its launches per batch, the plain
-   version's time, and ``torch._int_mm`` for the 1x1 stride-1 sites;
+   its shape (on the site's kept (N, K) weight) beside its bound, its
+   launches per batch, the plain version's time, and ``torch._int_mm``
+   for the 1x1 stride-1 sites, with the kernel's ring depth;
 10. int8 tracked crop: ``estimate_pose_dynamic`` with the int8 model.
    Each int8 path's first batch (full-frame chunks and crops for the
    tracker), before its counted run, holds every conv it launches against
@@ -468,16 +472,22 @@ def phase_mm(device) -> dict:
     int8_lib, int8_lib_err = library_ms(
         lambda a: torch._int_mm(a, b8), a8, 20)
     bf16_lib, _ = library_ms(lambda a: torch.matmul(a, bbf), abf, 20)
+    # the kernel reads B as (N, K): timed on a B transposed once, as a
+    # QuantConv keeps its weight; the transposition is timed on its own
+    b8t, bbft = b8.t().contiguous(), bbf.t().contiguous()
+    emit({"phase": "mm_transpose", "shape": [n, n],
+          "int8_ms": time_ms(lambda b: b.t().contiguous(), [b8, *a8], 20),
+          "bf16_ms": time_ms(lambda b: b.t().contiguous(), [bbf, *abf], 20)})
     out = {
-        "phase": "mm", "shape": [n, n, n],
+        "phase": "mm", "shape": [n, n, n], "ring_stages": gk.ring_stages(),
         "max_abs_err_int8": errors["int8"], "max_abs_err_bf16": errors["bf16"],
         "bf16_normal_rel_err": bf16_normal_rel,
-        "int8": {"ms": time_ms(lambda a: gk.mm(a, b8), a8, 20),
+        "int8": {"ms": time_ms(lambda a: gk.mm(a, b8, b_nk=b8t), a8, 20),
                  "plain_ms": eager_ms(lambda a: plain.mm(a, b8), a8[0]),
                  "library_ms": int8_lib, "library": "torch._int_mm",
                  "library_error": int8_lib_err,
                  **op_bound(2.0 * n ** 3, 6 * n * n, INT8_OPS_PER_S)},
-        "bf16": {"ms": time_ms(lambda a: gk.mm(a, bbf), abf, 20),
+        "bf16": {"ms": time_ms(lambda a: gk.mm(a, bbf, b_nk=bbft), abf, 20),
                  "plain_ms": eager_ms(lambda a: plain.mm(a, bbf), abf[0]),
                  "library_ms": bf16_lib,
                  "library": "torch.matmul (writes bf16)",
@@ -537,9 +547,9 @@ def checked_convs(qmodel, path: str, calls: list):
     seen = set()
 
     def conv(x, w, k, stride, rate, pad, oscale, bias, relu, out,
-             in_scale=None):
+             in_scale=None, w_nk=None):
         y = kernel(x, w, k, stride, rate, pad, oscale, bias, relu, out,
-                   in_scale)
+                   in_scale, w_nk=w_nk)
         site = site_of[w.data_ptr()]
         kind = "int8" if isinstance(out, tuple) else str(out).split(".")[-1]
         key = (site, tuple(x.shape), x.dtype, kind)
@@ -547,7 +557,7 @@ def checked_convs(qmodel, path: str, calls: list):
             return y
         seen.add(key)
         args = (w, k, stride, rate, pad, oscale, bias, relu)
-        acc = kernel(x, *args, torch.int32, in_scale)
+        acc = kernel(x, *args, torch.int32, in_scale, w_nk=w_nk)
         acc_err, step, differing, within = 0.0, 0.0, 0, True
         for i in range(0, x.shape[0], CHECK_FRAMES):
             part = slice(i, i + CHECK_FRAMES)
@@ -620,9 +630,9 @@ def phase_int8_conv(device, qmodel, calls) -> dict:
         b, (h, w), cin, cout = c["batch"], c["in_hw"], c["cin"], c["cout"]
         (oh, ow), wide = c["out_hw"], c["in"] != "int8"
 
-        def run(x, fn=gk.conv_int8):
+        def run(x, fn=gk.conv_int8, **kw):
             return fn(x, q.qw, k, stride, rate, pad, q.oscale, q.bias, relu,
-                      out, in_scale)
+                      out, in_scale, **kw)
 
         def ints():
             if wide:    # about the calibrated range, some clipped
@@ -638,7 +648,7 @@ def phase_int8_conv(device, qmodel, calls) -> dict:
                                          "stride", "rate", "in_hw", "out_hw",
                                          "in", "out")}
         entry["launches_per_batch"] = count
-        entry["ms"] = time_ms(run, ring, 5)
+        entry["ms"] = time_ms(lambda x: run(x, w_nk=q.qw_nk), ring, 5)
         # input, weight, scale and bias read once; output written once
         entry.update(op_bound(
             2.0 * m * cout * k * k * cin,
@@ -679,6 +689,7 @@ def phase_int8_conv(device, qmodel, calls) -> dict:
         return out
 
     out = {"phase": "int8_conv", "batch": BATCH, "hw": list(HW),
+           "ring_stages": gk.ring_stages(),
            "per_batch": {route: per_batch(route)
                          for route in ("mm_tiled", "conv_int8")},
            "sites": sites}
@@ -969,7 +980,7 @@ def main() -> int:
         "launches_by_path": {n: c["mm_tiled"] for n, c in by_path.items()},
         "max_abs_err": max(mm["max_abs_err_int8"], mm["max_abs_err_bf16"],
                            acc_err["mm_tiled"]),
-        "shape": mm["shape"],
+        "shape": mm["shape"], "ring_stages": mm["ring_stages"],
         **{k: mm["int8"][k] for k in ("ms", "plain_ms", "bound_ms",
                                       "bound_by", "library_ms")},
         "bf16": {k: mm["bf16"][k] for k in ("ms", "plain_ms", "bound_ms",

@@ -6,26 +6,27 @@
 // (sec_mm_pallas, body mm_kernel): a (M, K) @ (K, N) product on a grid of
 // (M/bm, N/bn, K/bk) steps whose accumulator lives in VMEM scratch, zeroed at
 // the first K step and stored at the last. Here a block owns one output tile
-// and walks K itself, so the accumulator stays in registers (wmma
-// accumulator fragments) and is written once.
+// and walks K itself, so the accumulator stays in registers and is written
+// once.
 //
 // Two launch functions share the main loop:
-//   mm_tiled_launch   row-major A (M, K) times row-major B (K, N). int8 gives
-//                     int32 and bf16 gives f32 (out_mode 0, the probe's
-//                     function). int8 also takes the conv epilogue below: a
-//                     1x1 stride-1 conv over NHWC input is exactly this
-//                     product with A = x viewed as (B*H*W, Cin). For such a
-//                     conv A may also be the wide (bf16 or f32) activation
-//                     itself, quantized as it is loaded with the conv's
-//                     input scale: clip(rint(x / s), -127, 127), the same
-//                     arithmetic as a separate quantizing pass, without
-//                     that pass's trip through device memory.
+//   mm_tiled_launch   row-major A (M, K) times B, given as its transpose: a
+//                     row-major (N, K) matrix. int8 gives int32 and bf16
+//                     gives f32 (out_mode 0, the probe's function). int8
+//                     also takes the conv epilogue below: a 1x1 stride-1
+//                     conv over NHWC input is exactly this product with A =
+//                     x viewed as (B*H*W, Cin). For such a conv A may also be
+//                     the wide (bf16 or f32) activation itself, quantized as
+//                     it is loaded with the conv's input scale: clip(rint(x /
+//                     s), -127, 127), the same arithmetic as a separate
+//                     quantizing pass, without that pass's trip through
+//                     device memory.
 //   conv_int8_launch  the A tile is gathered by im2col addressing from NHWC
 //                     int8 input x (B, H, W, Cin): kernel k x k, stride,
 //                     dilation rate, symmetric zero pad. Zero fill is exact
 //                     because the quantization is symmetric (zero point 0).
-//                     B is the HWIO weight as a (K = k*k*Cin, N = Cout)
-//                     int8 matrix.
+//                     B is the HWIO weight flattened to (K = k*k*Cin, Cout),
+//                     given as its (Cout, K) transpose.
 // Epilogue (models/quant.py of the JAX package, conv_fn):
 //   y = float(acc) * oscale[n] + bias[n], optional ReLU, then
 //   out_mode 1: f32, 2: bf16 (round to nearest even),
@@ -38,38 +39,94 @@
 //
 // Bound. At the probe's 4096^3 the work is 137 G operations: 0.069 ms at
 // 1979 TOPS int8 and 0.139 ms at 989 TFLOP/s bf16 (dense peaks), far above
-// the bytes (48-96 MB). The ResNet convs at batch 128 are operation-bound
-// too, except the stem (Cin = 3).
+// the bytes (48-96 MB). At batch 128 the ResNet's 3x3s from block 2 on and
+// its widest 1x1 (1024 -> 2048) are bound by their operations; the other
+// 1x1s, the block-1 3x3s and the stem (Cin = 3, K = 147) by their bytes,
+// most of them the bf16 or int8 output written once.
 //
-// Design (simple and right first; wgmma, TMA and a deeper pipeline are later
-// work). 128 x 128 output tile per block of 8 warps (2 x 4), each warp
-// 64 x 32 = 4 x 2 wmma 16x16x16 fragments. K advances 64 bytes per tile (64
-// int8 or 32 bf16), double-buffered in shared memory: the next tile's global
-// loads (16 bytes per thread and operand, twice) are issued before this
-// tile's mma and stored after it. Shared tiles are kept as 16-wide K slices
-// (A) and 16-wide N slices (B) so that every fragment starts 32-byte aligned
-// with a leading dimension of 16; slices are padded to spread the stores over
-// the banks. Loads fall back to scalar, masked reads where a row is not 16
-// bytes long or aligned (the stem's Cin = 3, K = 147; odd test shapes).
+// Design. 128 x 128 output tile per block of two warpgroups (256 threads);
+// warpgroup g owns rows 64g..64g+63 and issues wgmma.mma_async m64n128k32
+// (s32 += s8 * s8) or m64n128k16 (f32 += bf16 * bf16), 64 accumulators a
+// thread in registers. K advances 128 bytes per tile (128 int8 or 64 bf16):
+// four wgmmas of 32 bytes each.
+//   Shared memory. Both operands are stored K-major, one 128-byte row per M
+//   (A) or N (B) index, in the 128-byte swizzle: the 16-byte chunk c of row
+//   r lies at r*128 + ((c ^ (r & 7)) << 4) from a 1024-byte aligned tile
+//   base. The s8 form of wgmma takes both operands K-major only, which is
+//   why B arrives as (N, K); bf16 uses the same layout, so one descriptor
+//   serves both types. Descriptor: start address >> 4, leading offset 1
+//   (unused by a swizzled K-major layout), stride offset 1024 bytes between
+//   8-row groups, layout type 1 (128-byte swizzle); the j-th 32-byte K slice
+//   of a tile adds 2 to the address field, and the hardware applies the
+//   swizzle to the resulting addresses.
+//   Pipeline. A ring of kStages = 3 tiles (32 KB each). Operands whose
+//   loader copies bytes unchanged (dense int8 / bf16 rows, the im2col
+//   gather when Cin % 16 == 0, and B) are copied by cp.async straight into
+//   the swizzled slot, two tiles ahead, one commit group per tile; a chunk
+//   out of range or in the zero pad copies 0 source bytes, which
+//   zero-fills. The operands that are transformed on the way (A quantized
+//   on load; the scalar gathers of the stem and of shapes not 16-byte
+//   aligned) are loaded into registers and stored to their slot with
+//   st.shared one tile ahead, after the current tile's wgmmas are issued,
+//   so that they run beside them. Per tile: cp.async.wait_group 1;
+//   fence.proxy.async.shared::cta (cp.async and st.shared write through
+//   the generic proxy, wgmma reads through the async proxy: without the
+//   fence it may read stale bytes; each thread fences its own writes before
+//   the barrier); __syncthreads; cp.async of tile kt + 2 into the slot
+//   freed by tile kt - 1; wgmma.fence, four wgmmas, commit; the staged
+//   operands of tile kt + 1; wait_group 0.
+//   Occupancy. 97 KB of shared memory a block, so two blocks share an SM:
+//   one block's barriers, prologue and epilogue overlap the other's wgmmas.
+//   That caps a thread at 128 registers; the kernels that stage operands in
+//   registers spill a few hundred bytes under the cap and are faster all
+//   the same. Ring depth 4 (one block an SM) was slower everywhere.
+//   Epilogue. The accumulators pass through the freed ring as a row-major
+//   128 x 136 array of words (8 words of padding per row keep the fragment
+//   stores free of bank conflicts) to `store8`, which writes 8 consecutive
+//   outputs of one row: the fused epilogue and its exact rounding are the
+//   same code for every output mode.
 // Blocks are numbered N-tile fastest, so blocks that share an A tile run
 // together and read it from L2.
+//
+// What still holds it back: no TMA (every thread spends instructions and
+// registers on addresses and copies), no warp specialisation (the wgmmas of
+// a tile finish before the next tile's barrier; only the second block on
+// the SM fills that gap), 128-wide tiles that are half empty at the N = 64
+// sites, the quantize-on-load (repeated for every 128 columns of N) and the
+// stem's byte gathers in the consumer warps' own instruction stream, the
+// stem's (64, 147) weight read byte by byte (its rows are not a multiple of
+// 16 bytes), and an epilogue that does not overlap the next tile's loads
+// (no persistent blocks).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include <type_traits>
 
-using namespace nvcuda;
-
 namespace {
 
-constexpr int kBM = 128;
-constexpr int kBN = 128;
-constexpr int kThreads = 256;
-constexpr int kTileKBytes = 64;
+constexpr int kBM = 128;                        // output rows per block
+constexpr int kBN = 128;                        // output columns per block
+constexpr int kThreads = 256;                   // two warpgroups
+constexpr int kTileKBytes = 128;                // one swizzle row per tile
 constexpr int kChunkBytes = 16;
+constexpr int kStages = 3;                      // ring depth
+constexpr int kTileBytes = kBM * kTileKBytes;   // one operand's tile, 16 KB
+constexpr int kStageBytes = 2 * kTileBytes;     // A tile, then B tile
+constexpr int kRowsPerPass = kThreads / (kTileKBytes / kChunkBytes);  // 32
+constexpr int kPasses = kBM / kRowsPerPass;     // chunks per thread, operand
+constexpr int kOutStride = kBN + 8;             // epilogue row, in words
+constexpr int kRingBytes = kStages * kStageBytes;
+constexpr int kOutBytes = kBM * kOutStride * 4;
+constexpr int kSmemBytes =
+    (kRingBytes > kOutBytes ? kRingBytes : kOutBytes) + 1024;  // + alignment
+// blocks an SM: two where two rings fit the SM's 228 KB (1 KB of it
+// reserved for each block), which caps a thread at 128 registers
+constexpr int kBlocksPerSM = 2 * (kSmemBytes + 1024) <= 233472 ? 2 : 1;
+constexpr int kMaxDevices = 64;
+static_assert(kBM == kBN, "A and B tiles share one geometry");
+static_assert(kStages >= 2, "a ring needs two slots");
 
 enum OutMode { kRaw = 0, kF32 = 1, kBF16 = 2, kI8 = 3 };
 enum Flags { kVecA = 1, kVecB = 2, kVecOut = 4 };
@@ -87,23 +144,12 @@ struct Types<__nv_bfloat16> {
   using Bits = uint16_t;
 };
 
-// Tile geometry for element type T (sizes in elements unless named bytes).
+// Tile geometry for element type T (sizes in elements).
 template <typename T>
 struct Geo {
-  static constexpr int E = sizeof(T);
-  static constexpr int BK = kTileKBytes / E;     // K per tile
-  static constexpr int CH = kChunkBytes / E;     // elements per 16-byte load
-  static constexpr int ASlices = BK / 16;
-  static constexpr int ASlice = kBM * 16 + 32;   // 16-wide K slice of A
-  static constexpr int BSlice = BK * 16 + 32 / E;  // 16-wide N slice of B
-  static constexpr int AElems = ASlices * ASlice;
-  static constexpr int StageElems = AElems + (kBN / 16) * BSlice;
-  static constexpr int BChunksPerRow = kBN / CH;
+  static constexpr int BK = kTileKBytes / sizeof(T);  // K per tile
+  static constexpr int CH = kChunkBytes / sizeof(T);  // elements per chunk
 };
-
-constexpr int kStageBytes = 16768;  // Geo<T>::StageElems * E for both types
-static_assert(Geo<int8_t>::StageElems * 1 == kStageBytes, "stage size");
-static_assert(Geo<__nv_bfloat16>::StageElems * 2 == kStageBytes, "stage size");
 
 // Pack up to CH elements, read one by one, into a 16-byte word.
 template <typename T>
@@ -130,18 +176,47 @@ struct Scale {
 // than 2.5e-7 |t| from the nearest half-integer, rint(t) is rint(fl(y / s))
 // and the multiply suffices. Only the rare t near a half-integer pays for
 // the correctly rounded division.
+__device__ __forceinline__ bool near_half(float t, float r) {
+  return 0.5f - fabsf(t - r) <= 2.5e-7f * fabsf(t);
+}
+__device__ __forceinline__ uint32_t clip8(float r) {
+  return (uint32_t)(uint8_t)(int8_t)__float2int_rn(
+      fminf(fmaxf(r, -127.f), 127.f));
+}
 __device__ __forceinline__ uint32_t quant8(float y, Scale q) {
   const float t = y * q.inv;
   float r = rintf(t);
-  if (0.5f - fabsf(t - r) <= 2.5e-7f * fabsf(t)) r = rintf(__fdiv_rn(y, q.s));
-  r = fminf(fmaxf(r, -127.f), 127.f);
-  return (uint32_t)(uint8_t)(int8_t)__float2int_rn(r);
+  if (near_half(t, r)) r = rintf(__fdiv_rn(y, q.s));
+  return clip8(r);
 }
 
-// A operand: a dense row-major (M, K) matrix.
+// quant8 of 16 values, packed into 16 bytes. The multiply serves all 16 and
+// one test covers them: only a chunk with a value near a half-integer takes
+// the division path, so the quantizing loaders stay short, branch-free code.
+__device__ __forceinline__ uint4 quant16(const float (&v)[16], Scale q) {
+  uint32_t w[4] = {0, 0, 0, 0};
+  bool near = false;
+#pragma unroll
+  for (int e = 0; e < 16; ++e) {
+    const float t = v[e] * q.inv;
+    const float r = rintf(t);
+    near |= near_half(t, r);
+    w[e / 4] |= clip8(r) << (8 * (e % 4));
+  }
+  if (near) {
+    w[0] = w[1] = w[2] = w[3] = 0;
+#pragma unroll
+    for (int e = 0; e < 16; ++e) w[e / 4] |= quant8(v[e], q) << (8 * (e % 4));
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// A dense row-major (rows, K) operand: A (M, K), or B given as (N, K).
+// kCopies: its vector path copies bytes unchanged, so cp.async can fill it.
 template <typename T>
 struct DenseA {
   using Elem = T;
+  static constexpr bool kCopies = true;
   const T* a;
   int M, K;
   struct Row {
@@ -151,12 +226,17 @@ struct DenseA {
   __device__ Row row(long long m) const {
     return {a + (m < M ? m : 0) * (long long)K, m < M};
   }
+  // the 16-byte chunk at column k, or nullptr where it is zero fill
+  __device__ const T* src(const Row& r, int k) const {
+    return (r.ok && k < K) ? r.p + k : nullptr;
+  }
   __device__ uint4 load(const Row& r, int k, bool vec) const {
     constexpr int CH = Geo<T>::CH;
     if (vec) {
-      if (r.ok && k < K) return *reinterpret_cast<const uint4*>(r.p + k);
-      return make_uint4(0, 0, 0, 0);
+      const T* p = src(r, k);
+      return p ? *reinterpret_cast<const uint4*>(p) : make_uint4(0, 0, 0, 0);
     }
+    if (!(r.ok && k < K)) return make_uint4(0, 0, 0, 0);  // all zero fill
     Packer<T> pk;
     const auto* bits = reinterpret_cast<const typename Types<T>::Bits*>(r.p);
 #pragma unroll
@@ -201,6 +281,7 @@ __device__ __forceinline__ void load16(const float* p, float* v) {
 template <typename F>
 struct QuantA {
   using Elem = int8_t;
+  static constexpr bool kCopies = false;
   const F* a;
   int M, K;
   Scale q;
@@ -212,19 +293,16 @@ struct QuantA {
     return {a + (m < M ? m : 0) * (long long)K, m < M};
   }
   __device__ uint4 load(const Row& r, int k, bool vec) const {
+    if (!(r.ok && k < K)) return make_uint4(0, 0, 0, 0);  // all zero fill
     float v[16];
     if (vec) {  // K % 16 == 0: the 16 values are all in or all out
-      if (!(r.ok && k < K)) return make_uint4(0, 0, 0, 0);
       load16(r.p + k, v);
     } else {
 #pragma unroll
       for (int e = 0; e < 16; ++e)
         v[e] = (r.ok && k + e < K) ? to_float(r.p[k + e]) : 0.f;
     }
-    uint32_t w[4] = {0, 0, 0, 0};
-#pragma unroll
-    for (int e = 0; e < 16; ++e) w[e / 4] |= quant8(v[e], q) << (8 * (e % 4));
-    return make_uint4(w[0], w[1], w[2], w[3]);
+    return quant16(v, q);
   }
 };
 
@@ -233,6 +311,7 @@ struct QuantA {
 // k = (dy*ks + dx)*Cin + c (the HWIO weight flattened to (K, N)).
 struct ConvA {
   using Elem = int8_t;
+  static constexpr bool kCopies = true;
   const int8_t* x;
   int M, K, H, W, Cin, OH, OW, ks, stride, rate, pad;
   struct Row {
@@ -250,18 +329,28 @@ struct ConvA {
     return {x + (long long)b * H * W * Cin, oh * stride - pad, ow * stride - pad,
             true};
   }
+  // Cin % 16 == 0: the 16 bytes at column k lie in one tap, contiguous;
+  // nullptr where they are zero fill
+  __device__ const int8_t* src(const Row& r, int k) const {
+    const int tap = k / Cin;
+    const int c = k - tap * Cin;
+    const int dy = tap / ks;
+    const int dx = tap - dy * ks;
+    const int ih = r.ih0 + dy * rate, iw = r.iw0 + dx * rate;
+    if (r.ok && k < K && ih >= 0 && ih < H && iw >= 0 && iw < W)
+      return r.img + ((long long)ih * W + iw) * Cin + c;
+    return nullptr;
+  }
   __device__ uint4 load(const Row& r, int k, bool vec) const {
+    if (vec) {
+      const int8_t* p = src(r, k);
+      return p ? *reinterpret_cast<const uint4*>(p) : make_uint4(0, 0, 0, 0);
+    }
+    if (!(r.ok && k < K)) return make_uint4(0, 0, 0, 0);  // all zero fill
     int tap = k / Cin;
     int c = k - tap * Cin;
     int dy = tap / ks;
     int dx = tap - dy * ks;
-    if (vec) {  // Cin % 16 == 0: the 16 bytes lie in one tap, contiguous
-      const int ih = r.ih0 + dy * rate, iw = r.iw0 + dx * rate;
-      if (r.ok && k < K && ih >= 0 && ih < H && iw >= 0 && iw < W)
-        return *reinterpret_cast<const uint4*>(
-            r.img + ((long long)ih * W + iw) * Cin + c);
-      return make_uint4(0, 0, 0, 0);
-    }
     Packer<int8_t> pk;
 #pragma unroll
     for (int e = 0; e < 16; ++e) {
@@ -279,23 +368,6 @@ struct ConvA {
     return pk.get();
   }
 };
-
-template <typename T>
-__device__ __forceinline__ uint4 load_b(const T* b, int K, int N, int k, int n,
-                                        bool vec) {
-  constexpr int CH = Geo<T>::CH;
-  if (vec) {
-    if (k < K && n < N)
-      return *reinterpret_cast<const uint4*>(b + (long long)k * N + n);
-    return make_uint4(0, 0, 0, 0);
-  }
-  Packer<T> pk;
-  const auto* bits = reinterpret_cast<const typename Types<T>::Bits*>(b);
-#pragma unroll
-  for (int e = 0; e < CH; ++e)
-    if (k < K && n + e < N) pk.put(e, bits[(long long)k * N + n + e]);
-  return pk.get();
-}
 
 struct Epilogue {
   const float* oscale;
@@ -383,126 +455,252 @@ __device__ __forceinline__ void store8(void* out, long long m, int n, int N,
   }
 }
 
-template <typename L, int OUT>
-__global__ void __launch_bounds__(kThreads, 2)
-    gemm_kernel(L aload, const typename L::Elem* __restrict__ bmat, void* out,
-                int M, int N, int K, Epilogue ep, int flags) {
+// ---- Hopper primitives (PTX) ----
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, or 16 zero bytes where src is nullptr (0
+// source bytes; `fill` is any valid global address).
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           const void* fill) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src ? src : fill), "r"(src ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// make this thread's generic-proxy writes to shared memory visible to the
+// async proxy that wgmma reads through
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// wgmma shared-memory descriptor of a K-major tile in the 128-byte swizzle
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3ffff) >> 4)   // start address
+         | (uint64_t)1 << 16                  // leading offset (unused)
+         | (uint64_t)(1024 >> 4) << 32        // stride offset: 8 rows
+         | (uint64_t)1 << 62;                 // 128-byte swizzle
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keep the compiler from moving accumulator registers across the
+// asynchronous wgmmas that own them.
+__device__ __forceinline__ void fence_operands(int (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+__device__ __forceinline__ void fence_operands(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define DGP_ACC8(C, d, i)                                               \
+  C(d[i]), C(d[i + 1]), C(d[i + 2]), C(d[i + 3]), C(d[i + 4]), C(d[i + 5]), \
+      C(d[i + 6]), C(d[i + 7])
+#define DGP_ACC64(C, d)                                                  \
+  DGP_ACC8(C, d, 0), DGP_ACC8(C, d, 8), DGP_ACC8(C, d, 16),              \
+      DGP_ACC8(C, d, 24), DGP_ACC8(C, d, 32), DGP_ACC8(C, d, 40),        \
+      DGP_ACC8(C, d, 48), DGP_ACC8(C, d, 56)
+#define DGP_R(x) "+r"(x)
+#define DGP_F(x) "+f"(x)
+#define DGP_REGS64                                                           \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "  \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "   \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "   \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "   \
+  "%58, %59, %60, %61, %62, %63}"
+
+// d (64 x 128 of this warpgroup) += A (64 x 32 bytes) * B (128 x 32 bytes)^T
+__device__ __forceinline__ void wgmma_tile(int (&d)[64], uint64_t da,
+                                           uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 " DGP_REGS64
+      ", %64, %65, p;\n}\n"
+      : DGP_ACC64(DGP_R, d)
+      : "l"(da), "l"(db), "r"(1)
+      : "memory");
+}
+__device__ __forceinline__ void wgmma_tile(float (&d)[64], uint64_t da,
+                                           uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " DGP_REGS64
+      ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : DGP_ACC64(DGP_F, d)
+      : "l"(da), "l"(db), "r"(1)
+      : "memory");
+}
+
+__device__ __forceinline__ void put2(int* p, int x, int y) {
+  *reinterpret_cast<int2*>(p) = make_int2(x, y);
+}
+__device__ __forceinline__ void put2(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
+}
+
+// ASYNC: both operands by cp.async, no register staging. It is an
+// instantiation of its own because the staging code, compiled in, takes
+// registers (and spills a little under the 128-register cap) that slow the
+// all-copy path down.
+template <typename L, int OUT, bool ASYNC>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSM)
+    gemm_kernel(L aload, DenseA<typename L::Elem> bload, void* out, int M,
+                int N, int K, Epilogue ep, int flags) {
   using T = typename L::Elem;
   using G = Geo<T>;
   using Acc = typename Types<T>::Acc;
-  using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16,
-                               typename std::conditional<
-                                   sizeof(T) == 1, signed char, T>::type,
-                               wmma::row_major>;
-  using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16,
-                               typename std::conditional<
-                                   sizeof(T) == 1, signed char, T>::type,
-                               wmma::row_major>;
-  using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, Acc>;
-  using WT = typename std::conditional<sizeof(T) == 1, signed char, T>::type;
 
-  __shared__ __align__(128) unsigned char smem[2 * kStageBytes];
+  extern __shared__ __align__(1024) unsigned char dsmem[];
+  // the swizzle is a function of address bits 4-9: tiles start 1024-aligned
+  unsigned char* smem = dsmem + ((1024 - (smem_addr(dsmem) & 1023)) & 1023);
+  const uint32_t sbase = smem_addr(smem);
 
   const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int wm = warp / 4, wn = warp % 4;
   const int n_tiles = (N + kBN - 1) / kBN;
   const long long m0 = (long long)(blockIdx.x / n_tiles) * kBM;
   const int n0 = (blockIdx.x % n_tiles) * kBN;
   const bool vec_a = flags & kVecA, vec_b = flags & kVecB;
+  const bool async_a = ASYNC || (L::kCopies && vec_a);
+  const bool async_b = ASYNC || vec_b;
+  const bool staged = !(async_a && async_b);
 
-  // this thread's two A chunks (rows tid/4 and tid/4 + 64, 16 bytes at
-  // byte offset 16 * (tid % 4) of the tile's K range) and two B chunks
-  const int a_col = (tid % 4) * G::CH;
-  typename L::Row arow[2];
-  int a_off[2], b_k[2], b_n[2], b_off[2];
+  // this thread's chunks: chunk tid % 8 of rows tid / 8 + 32 i of each
+  // operand's tile, at the swizzled offset `off` + i * 4096
+  const int chunk = tid % 8;
+  const int col = chunk * G::CH;
+  const uint32_t off =
+      (tid / 8) * kTileKBytes + ((chunk ^ ((tid / 8) & 7)) << 4);
+  constexpr int kPassBytes = kRowsPerPass * kTileKBytes;
+  typename L::Row arow[kPasses];
+  typename DenseA<T>::Row brow[kPasses];
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = tid / 4 + i * 64;
-    arow[i] = aload.row(m0 + r);
-    a_off[i] = (a_col / 16) * G::ASlice + r * 16 + a_col % 16;
-    const int c = tid + i * kThreads;
-    b_k[i] = c / G::BChunksPerRow;
-    const int bn = (c % G::BChunksPerRow) * G::CH;
-    b_n[i] = bn;
-    b_off[i] = (bn / 16) * G::BSlice + b_k[i] * 16 + bn % 16;
+  for (int i = 0; i < kPasses; ++i) {
+    arow[i] = aload.row(m0 + tid / 8 + kRowsPerPass * i);
+    brow[i] = bload.row(n0 + tid / 8 + kRowsPerPass * i);
   }
-
-  FragC acc[4][2];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], Acc(0));
-
-  uint4 ra[2], rb[2];
-  auto fetch = [&](int kt) {
-    const int k0 = kt * G::BK;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      ra[i] = aload.load(arow[i], k0 + a_col, vec_a);
-      rb[i] = load_b<T>(bmat, K, N, k0 + b_k[i], n0 + b_n[i], vec_b);
-    }
-  };
-  auto stash = [&](int stage) {
-    T* s = reinterpret_cast<T*>(smem + stage * kStageBytes);
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      *reinterpret_cast<uint4*>(s + a_off[i]) = ra[i];
-      *reinterpret_cast<uint4*>(s + G::AElems + b_off[i]) = rb[i];
-    }
-  };
 
   const int k_tiles = (K + G::BK - 1) / G::BK;
-  fetch(0);
-  stash(0);
-  __syncthreads();
-  for (int kt = 0; kt < k_tiles; ++kt) {
-    const bool more = kt + 1 < k_tiles;
-    if (more) fetch(kt + 1);
-    const WT* as = reinterpret_cast<const WT*>(smem + (kt & 1) * kStageBytes);
-    const WT* bs = as + G::AElems;
+  // the byte-copying operands of tile kt, by cp.async; one group per call
+  auto issue = [&](int kt) {
+    if (kt < k_tiles) {
+      const uint32_t s = sbase + (kt % kStages) * kStageBytes + off;
+      const int k = kt * G::BK + col;
+      if constexpr (L::kCopies) {
+        if (async_a) {
 #pragma unroll
-    for (int s = 0; s < G::ASlices; ++s) {
-      FragA a[4];
-      FragB b[2];
+          for (int i = 0; i < kPasses; ++i)
+            cp_async16(s + i * kPassBytes, aload.src(arow[i], k), bload.a);
+        }
+      }
+      if (async_b) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        wmma::load_matrix_sync(a[i], as + s * G::ASlice + (wm * 64 + i * 16) * 16,
-                               16);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(b[j], bs + (wn * 2 + j) * G::BSlice + s * 256,
-                               16);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
+        for (int i = 0; i < kPasses; ++i)
+          cp_async16(s + kTileBytes + i * kPassBytes, bload.src(brow[i], k),
+                     bload.a);
+      }
     }
-    if (more) stash((kt + 1) & 1);
-    __syncthreads();
+    cp_async_commit();
+  };
+  // the other operands of tile kt, through registers into their slot
+  auto stage_regs = [&](int kt) {
+    if constexpr (!ASYNC) {
+      const int k = kt * G::BK + col;
+      uint4 ra[kPasses], rb[kPasses];
+#pragma unroll
+      for (int i = 0; i < kPasses; ++i) {
+        if (!async_a) ra[i] = aload.load(arow[i], k, vec_a);
+        if (!async_b) rb[i] = bload.load(brow[i], k, vec_b);
+      }
+      unsigned char* s = smem + (kt % kStages) * kStageBytes + off;
+#pragma unroll
+      for (int i = 0; i < kPasses; ++i) {
+        if (!async_a) *reinterpret_cast<uint4*>(s + i * kPassBytes) = ra[i];
+        if (!async_b)
+          *reinterpret_cast<uint4*>(s + kTileBytes + i * kPassBytes) = rb[i];
+      }
+    }
+  };
+
+  Acc acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = Acc(0);
+
+  for (int kt = 0; kt < kStages - 1; ++kt) issue(kt);
+  if (staged) stage_regs(0);
+  const uint32_t a_off = (tid / 128) * 64 * kTileKBytes;  // this warpgroup
+#pragma unroll 1
+  for (int kt = 0; kt < k_tiles; ++kt) {
+    cp_async_wait<kStages - 2>();  // tile kt's copies have landed
+    fence_proxy_async();
+    __syncthreads();               // ... everyone's, and tile kt - 1 is read
+    issue(kt + kStages - 1);       // into tile kt - 1's slot
+    const uint32_t s = sbase + (kt % kStages) * kStageBytes;
+    const uint64_t da = smem_desc(s + a_off), db = smem_desc(s + kTileBytes);
+    fence_operands(acc);
+    __syncwarp();                  // .aligned: the warp issues together
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < 4; ++j) wgmma_tile(acc, da + 2 * j, db + 2 * j);
+    wgmma_commit();
+    // the register-staged loads and their transform overlap the wgmmas
+    if (staged && kt + 1 < k_tiles) stage_regs(kt + 1);
+    wgmma_wait0();
+    fence_operands(acc);
   }
 
-  // epilogue: each warp passes its fragments one by one through a 16x16
-  // scratch in shared memory; lane l handles row l/2, 8 columns
-  Acc* scratch = reinterpret_cast<Acc*>(smem) + warp * 256;
-  const int row = lane / 2, col = (lane % 2) * 8;
+  // epilogue: the fragments to a row-major tile in the freed ring; row
+  // 16 * warp + lane / 4 (+8), columns 8 j + 2 (lane % 4) (+1)
+  cp_async_wait<0>();
+  __syncthreads();
+  Acc* tile = reinterpret_cast<Acc*>(smem);
+  {
+    const int warp = tid / 32, lane = tid % 32;
+    Acc* p = tile + (16 * warp + lane / 4) * kOutStride + 2 * (lane % 4);
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      put2(p + 8 * j, acc[4 * j], acc[4 * j + 1]);
+      put2(p + 8 * kOutStride + 8 * j, acc[4 * j + 2], acc[4 * j + 3]);
+    }
+  }
+  __syncthreads();
+  // thread tid stores 8 columns from 8 * (tid % 16) of rows tid / 16 + 16 i
   const bool vec_out = flags & kVecOut;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      wmma::store_matrix_sync(scratch, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      const long long m = m0 + wm * 64 + i * 16 + row;
-      const int n = n0 + wn * 32 + j * 16 + col;
-      if (m < M && n < N) {
+#pragma unroll 1
+  for (int i = 0; i < kBM / 16; ++i) {
+    const int r = tid / 16 + 16 * i, c = 8 * (tid % 16);
+    const long long m = m0 + r;
+    const int n = n0 + c;
+    if (m < M && n < N) {
+      union {
+        uint4 u[2];
         Acc v[8];
-#pragma unroll
-        for (int e = 0; e < 8; ++e) v[e] = scratch[row * 16 + col + e];
-        store8<OUT>(out, m, n, N, v, ep, vec_out);
-      }
-      __syncwarp();
+      } buf;
+      const uint4* p =
+          reinterpret_cast<const uint4*>(tile + r * kOutStride + c);
+      buf.u[0] = p[0];
+      buf.u[1] = p[1];
+      store8<OUT>(out, m, n, N, buf.v, ep, vec_out);
     }
   }
 }
@@ -513,48 +711,96 @@ bool host_aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
+template <typename L, int OUT, bool ASYNC>
+int run(const L& aload, const DenseA<typename L::Elem>& bload, void* out,
+        int M, int N, int K, Epilogue ep, int flags, dim3 grid,
+        cudaStream_t stream) {
+  const auto kernel = gemm_kernel<L, OUT, ASYNC>;
+  // more than 48 KB of dynamic shared memory needs an opt-in, once per
+  // kernel and device (before any graph capture: the first launch is eager)
+  static bool ready[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (!ready[dev]) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+    if (err != cudaSuccess) return (int)err;
+    ready[dev] = true;
+  }
+  kernel<<<grid, kThreads, kSmemBytes, stream>>>(aload, bload, out, M, N, K,
+                                                  ep, flags);
+  return (int)cudaGetLastError();
+}
+
+// the instantiation without register staging where both operands copy
+template <typename L, int OUT>
+int run_for(const L& aload, const DenseA<typename L::Elem>& bload, void* out,
+            int M, int N, int K, Epilogue ep, int flags, dim3 grid,
+            cudaStream_t stream) {
+  if constexpr (L::kCopies) {
+    if ((flags & kVecA) && (flags & kVecB))
+      return run<L, OUT, true>(aload, bload, out, M, N, K, ep, flags, grid,
+                               stream);
+  }
+  return run<L, OUT, false>(aload, bload, out, M, N, K, ep, flags, grid,
+                            stream);
+}
+
 template <typename L>
-int launch(const L& aload, const typename L::Elem* b, void* out, int M, int N,
-           int K, int out_mode, Epilogue ep, int flags, cudaStream_t stream) {
+int launch(const L& aload, const DenseA<typename L::Elem>& bload, void* out,
+           int M, int N, int K, int out_mode, Epilogue ep, int flags,
+           cudaStream_t stream) {
   const long long blocks = (long long)((M + kBM - 1) / kBM) *
                            ((N + kBN - 1) / kBN);
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)blocks);
-  switch (out_mode) {
-    case kRaw:
-      gemm_kernel<L, kRaw><<<grid, kThreads, 0, stream>>>(aload, b, out, M, N,
-                                                          K, ep, flags);
-      break;
-    case kF32:
-      gemm_kernel<L, kF32><<<grid, kThreads, 0, stream>>>(aload, b, out, M, N,
-                                                          K, ep, flags);
-      break;
-    case kBF16:
-      gemm_kernel<L, kBF16><<<grid, kThreads, 0, stream>>>(aload, b, out, M,
-                                                           N, K, ep, flags);
-      break;
-    case kI8:
-      gemm_kernel<L, kI8><<<grid, kThreads, 0, stream>>>(aload, b, out, M, N,
-                                                         K, ep, flags);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
+  if constexpr (std::is_same<typename L::Elem, __nv_bfloat16>::value) {
+    if (out_mode != kRaw) return (int)cudaErrorInvalidValue;
+    return run_for<L, kRaw>(aload, bload, out, M, N, K, ep, flags, grid,
+                            stream);
+  } else {
+    switch (out_mode) {
+      case kRaw:
+        return run_for<L, kRaw>(aload, bload, out, M, N, K, ep, flags, grid,
+                                stream);
+      case kF32:
+        return run_for<L, kF32>(aload, bload, out, M, N, K, ep, flags, grid,
+                                stream);
+      case kBF16:
+        return run_for<L, kBF16>(aload, bload, out, M, N, K, ep, flags, grid,
+                                 stream);
+      case kI8:
+        return run_for<L, kI8>(aload, bload, out, M, N, K, ep, flags, grid,
+                               stream);
+      default:
+        return (int)cudaErrorInvalidValue;
+    }
   }
-  return (int)cudaGetLastError();
 }
 
 int out_flag(const void* out, int N) {
   return (N % 8 == 0 && host_aligned16(out)) ? kVecOut : 0;
 }
 
+// the vector flag of a row-major (rows, K) operand of `ch`-element chunks
+int vec_flag(const void* p, long long K, int ch, int flag) {
+  return (K % ch == 0 && host_aligned16(p)) ? flag : 0;
+}
+
 }  // namespace
 
+// The depth of the shared-memory ring (tiles in flight).
+extern "C" int int8_gemm_stages() { return kStages; }
+
 // Launch on `stream`; returns the cudaError_t of the launch (0 = success).
+// `bt` is B transposed: row-major (N, K).
 // dtype 0: int8 A, B (out_mode 0 gives int32, 1-3 the conv epilogue);
 // dtype 1: bf16 A, B (out_mode 0 only, f32 out);
 // dtype 2 / 3: bf16 / f32 A quantized on load with `a_scale`, int8 B
 // (as dtype 0). `oscale`/`bias` (length N) are read only for out_mode > 0.
-extern "C" int mm_tiled_launch(int dtype, const void* a, const void* b,
+extern "C" int mm_tiled_launch(int dtype, const void* a, const void* bt,
                                void* out, int M, int N, int K, float a_scale,
                                const float* oscale, const float* bias,
                                int relu, int out_mode, float s_next,
@@ -562,43 +808,41 @@ extern "C" int mm_tiled_launch(int dtype, const void* a, const void* b,
   if (M <= 0 || N <= 0 || K <= 0) return (int)cudaErrorInvalidValue;
   const Epilogue ep{oscale, bias, host_scale(s_next), relu};
   const auto st = static_cast<cudaStream_t>(stream);
-  const int flags_b = (N % 16 == 0 && host_aligned16(b) ? kVecB : 0) |
-                      out_flag(out, N);
-  const int vec_qa = (K % 16 == 0 && host_aligned16(a)) ? kVecA : 0;
+  const int flags_out = out_flag(out, N);
+  if (dtype == 1) {
+    if (out_mode != kRaw) return (int)cudaErrorInvalidValue;
+    using BF = __nv_bfloat16;
+    const DenseA<BF> A{static_cast<const BF*>(a), M, K};
+    const DenseA<BF> B{static_cast<const BF*>(bt), N, K};
+    return launch(A, B, out, M, N, K, out_mode, ep,
+                  vec_flag(a, K, 8, kVecA) | vec_flag(bt, K, 8, kVecB) |
+                      flags_out,
+                  st);
+  }
+  const DenseA<int8_t> B{static_cast<const int8_t*>(bt), N, K};
+  const int flags_b = vec_flag(bt, K, 16, kVecB) | flags_out;
+  const int flags_a = vec_flag(a, K, 16, kVecA);
+  if (dtype == 0) {
+    const DenseA<int8_t> A{static_cast<const int8_t*>(a), M, K};
+    return launch(A, B, out, M, N, K, out_mode, ep, flags_a | flags_b, st);
+  }
   if (dtype == 2) {
-    const QuantA<__nv_bfloat16> L{static_cast<const __nv_bfloat16*>(a), M, K,
+    const QuantA<__nv_bfloat16> A{static_cast<const __nv_bfloat16*>(a), M, K,
                                   host_scale(a_scale)};
-    return launch(L, static_cast<const int8_t*>(b), out, M, N, K, out_mode, ep,
-                  vec_qa | flags_b, st);
+    return launch(A, B, out, M, N, K, out_mode, ep, flags_a | flags_b, st);
   }
   if (dtype == 3) {
-    const QuantA<float> L{static_cast<const float*>(a), M, K,
+    const QuantA<float> A{static_cast<const float*>(a), M, K,
                           host_scale(a_scale)};
-    return launch(L, static_cast<const int8_t*>(b), out, M, N, K, out_mode, ep,
-                  vec_qa | flags_b, st);
-  }
-  if (dtype == 0) {
-    const DenseA<int8_t> L{static_cast<const int8_t*>(a), M, K};
-    const int flags = (K % 16 == 0 && host_aligned16(a) ? kVecA : 0) |
-                      (N % 16 == 0 && host_aligned16(b) ? kVecB : 0) |
-                      out_flag(out, N);
-    return launch(L, static_cast<const int8_t*>(b), out, M, N, K, out_mode, ep,
-                  flags, st);
-  }
-  if (dtype == 1 && out_mode == kRaw) {
-    const DenseA<__nv_bfloat16> L{static_cast<const __nv_bfloat16*>(a), M, K};
-    const int flags = (K % 8 == 0 && host_aligned16(a) ? kVecA : 0) |
-                      (N % 8 == 0 && host_aligned16(b) ? kVecB : 0) |
-                      out_flag(out, N);
-    return launch(L, static_cast<const __nv_bfloat16*>(b), out, M, N, K,
-                  out_mode, ep, flags, st);
+    return launch(A, B, out, M, N, K, out_mode, ep, flags_a | flags_b, st);
   }
   return (int)cudaErrorInvalidValue;
 }
 
-// x (B, H, W, Cin) int8 NHWC, w (k*k*Cin, Cout) int8, out (B, OH, OW, Cout)
-// of the out_mode's type. pad is the symmetric zero pad of each side.
-extern "C" int conv_int8_launch(const int8_t* x, const int8_t* w, void* out,
+// x (B, H, W, Cin) int8 NHWC, wt (Cout, k*k*Cin) int8 (the flattened HWIO
+// weight, transposed), out (B, OH, OW, Cout) of the out_mode's type. pad is
+// the symmetric zero pad of each side.
+extern "C" int conv_int8_launch(const int8_t* x, const int8_t* wt, void* out,
                                 const float* oscale, const float* bias,
                                 int relu, int out_mode, float s_next, int B,
                                 int H, int W, int Cin, int OH, int OW,
@@ -608,13 +852,14 @@ extern "C" int conv_int8_launch(const int8_t* x, const int8_t* w, void* out,
   const long long K = (long long)k * k * Cin;
   if (M <= 0 || M > 0x7fffffffLL || K > 0x7fffffffLL || Cout <= 0 || k <= 0 ||
       stride <= 0 || rate <= 0 || pad < 0 ||
-      (long long)H * W * Cin > 0x7fffffffLL)
+      (long long)H * W * Cin > 0x7fffffffLL ||
+      (long long)Cout * K > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
-  const ConvA L{x, (int)M, (int)K, H, W, Cin, OH, OW, k, stride, rate, pad};
-  const int flags = (Cin % 16 == 0 && host_aligned16(x) ? kVecA : 0) |
-                    (Cout % 16 == 0 && host_aligned16(w) ? kVecB : 0) |
+  const ConvA A{x, (int)M, (int)K, H, W, Cin, OH, OW, k, stride, rate, pad};
+  const DenseA<int8_t> Bw{wt, Cout, (int)K};
+  const int flags = vec_flag(x, Cin, 16, kVecA) | vec_flag(wt, K, 16, kVecB) |
                     out_flag(out, Cout);
   const Epilogue ep{oscale, bias, host_scale(s_next), relu};
-  return launch(L, w, out, (int)M, Cout, (int)K, out_mode, ep, flags,
+  return launch(A, Bw, out, (int)M, Cout, (int)K, out_mode, ep, flags,
                 static_cast<cudaStream_t>(stream));
 }

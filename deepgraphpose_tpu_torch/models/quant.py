@@ -187,13 +187,20 @@ class QuantConv(nn.Module):
     """One int8 conv site: the (k*k*Cin, Cout) int8 weight (the HWIO
     kernel flattened), per-channel ``oscale`` and ``bias``, and the
     calibrated input scale ``act_scale``, a Python float kept as the
-    module's extra state (the kernel takes it by value: no device read)."""
+    module's extra state (the kernel takes it by value: no device read).
+
+    ``qw_nk`` is ``qw`` transposed, (Cout, k*k*Cin) contiguous, the layout
+    the GEMM kernel reads: a buffer that is not saved, made again whenever
+    a state is loaded and moved with the module."""
 
     def __init__(self, k: int, cin: int, cout: int):
         super().__init__()
         self.k = k
         self.register_buffer("qw", torch.zeros(k * k * cin, cout,
                                                dtype=torch.int8))
+        self.register_buffer("qw_nk", torch.zeros(cout, k * k * cin,
+                                                  dtype=torch.int8),
+                             persistent=False)
         self.register_buffer("oscale", torch.zeros(cout))
         self.register_buffer("bias", torch.zeros(cout))
         self.act_scale: float | None = None
@@ -203,6 +210,10 @@ class QuantConv(nn.Module):
 
     def set_extra_state(self, state) -> None:
         self.act_scale = state["act_scale"]
+
+    def _load_from_state_dict(self, *args, **kwargs):
+        super()._load_from_state_dict(*args, **kwargs)
+        self.qw_nk = self.qw.t().contiguous()
 
     def forward(self, x, stride: int, rate: int, relu: bool, out):
         # an int8 input was requantized by its producer with THIS site's
@@ -217,7 +228,8 @@ class QuantConv(nn.Module):
                 x = _quantize_to(x, self.act_scale)
         return kernels.conv_int8(x.contiguous(), self.qw, self.k, stride,
                                  rate, _pad_for(self.k, stride, rate),
-                                 self.oscale, self.bias, relu, out, in_scale)
+                                 self.oscale, self.bias, relu, out, in_scale,
+                                 w_nk=self.qw_nk)
 
 
 def _int8_backbone(cfg: PoseConfig, sites, x, carry_dtype=torch.bfloat16,
@@ -376,7 +388,8 @@ def _local_bias_stats(cfg: PoseConfig, folded: dict, sites, images) -> dict:
         inv_sx = float(np.float32(1.0) / np.float32(q.act_scale))
         xq = torch.clamp(torch.round(x * inv_sx), -127, 127).to(torch.int8)
         y8 = kernels.conv_int8(xq.contiguous(), q.qw, q.k, stride, rate, pad,
-                               q.oscale, b, False, torch.float32)
+                               q.oscale, b, False, torch.float32,
+                               w_nk=q.qw_nk)
         diff[site] = torch.mean(y32 - y8, dim=(0, 1, 2))
         return torch.relu(y32) if relu else y32
 

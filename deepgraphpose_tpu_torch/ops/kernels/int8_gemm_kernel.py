@@ -11,6 +11,10 @@
   strided 1x1 shortcuts) runs on ``conv_int8``, which gathers its int8 A
   tile by im2col addressing.
 
+Both take B as (K, N), as the plain versions do; the kernel's ``wgmma``
+reads it transposed, (N, K), from a copy that the caller keeps
+(``b_nk`` / ``w_nk``) or that the wrapper makes per call.
+
 A tensor on the CPU goes to the plain version in ``ops/int8_gemm.py``; a
 CUDA tensor launches the kernel or raises. ``launches`` counts the kernel
 launches of each launch function, so a run can show that its main path
@@ -57,8 +61,15 @@ def _lib():
         lib.conv_int8_launch.restype = i
         lib.conv_int8_launch.argtypes = [p, p, p, p, p, i, i, f] + [i] * 11 + [
             p]
+        lib.int8_gemm_stages.restype = i
+        lib.int8_gemm_stages.argtypes = []
         _lib_typed = lib
     return _lib_typed
+
+
+def ring_stages() -> int:
+    """The kernel's pipeline depth: K tiles in its shared-memory ring."""
+    return _lib().int8_gemm_stages()
 
 
 def _ptr(t: torch.Tensor | None):
@@ -82,8 +93,28 @@ def _launched(name: str, rc: int, shape) -> None:
     launches[name] += 1
 
 
-def mm(a: torch.Tensor, b: torch.Tensor, acc_dtype=None) -> torch.Tensor:
-    """(M, K) @ (K, N), row-major: int8 -> int32, bf16 -> float32."""
+def _transposed(b: torch.Tensor, b_nk: torch.Tensor | None) -> torch.Tensor:
+    """The kernel's (N, K) form of a (K, N) operand: ``b_nk`` where the
+    caller keeps one (checked for shape, type and layout only), else made
+    now."""
+    if b_nk is None:
+        return b.t().contiguous()
+    if (b_nk.shape != b.shape[::-1] or b_nk.dtype != b.dtype
+            or b_nk.device != b.device or not b_nk.is_contiguous()):
+        raise ValueError(f"the (N, K) copy must be a contiguous "
+                         f"{tuple(b.shape[::-1])} {b.dtype} on {b.device}, "
+                         f"got {tuple(b_nk.shape)} {b_nk.dtype} on "
+                         f"{b_nk.device}")
+    return b_nk
+
+
+def mm(a: torch.Tensor, b: torch.Tensor, acc_dtype=None,
+       b_nk: torch.Tensor | None = None) -> torch.Tensor:
+    """(M, K) @ (K, N), row-major: int8 -> int32, bf16 -> float32.
+
+    The kernel reads B as its (N, K) transpose: ``b_nk``, a contiguous copy
+    the caller keeps, or one made per call.
+    """
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
         raise ValueError(f"expected (M, K) @ (K, N), got {tuple(a.shape)} "
                          f"@ {tuple(b.shape)}")
@@ -105,9 +136,10 @@ def mm(a: torch.Tensor, b: torch.Tensor, acc_dtype=None) -> torch.Tensor:
         return out
     if k == 0:
         return out.zero_()
+    bt = _transposed(b, b_nk)
     with torch.cuda.device(dev):
         rc = _lib().mm_tiled_launch(
-            dtype, a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k, 0.0,
+            dtype, a.data_ptr(), bt.data_ptr(), out.data_ptr(), m, n, k, 0.0,
             None, None, 0, 0, 0.0, torch.cuda.current_stream(dev).cuda_stream)
     _launched("mm_tiled", rc, (m, n, k))
     return out
@@ -116,14 +148,17 @@ def mm(a: torch.Tensor, b: torch.Tensor, acc_dtype=None) -> torch.Tensor:
 def conv_int8(xq: torch.Tensor, w: torch.Tensor, k: int, stride: int,
               rate: int, pad: int, oscale: torch.Tensor | None,
               bias: torch.Tensor | None, relu: bool, out,
-              in_scale: float | None = None) -> torch.Tensor:
+              in_scale: float | None = None,
+              w_nk: torch.Tensor | None = None) -> torch.Tensor:
     """One quantized conv over NHWC input; see ``ops/int8_gemm.py``.
 
     xq (B, H, W, Cin) contiguous: int8, or, for a 1x1 stride-1 conv, bf16 /
     float32 quantized with ``in_scale`` as the kernel loads it; w
     (k*k*Cin, N) int8 contiguous; oscale, bias (N,) float32 (unused when
-    ``out`` is ``torch.int32``). Returns (B, OH, OW, N) contiguous in
-    ``out``'s type.
+    ``out`` is ``torch.int32``). The kernel reads the weight as its (N,
+    k*k*Cin) transpose: ``w_nk``, a contiguous copy the caller keeps (as
+    ``QuantConv.qw_nk``), or one made per call. Returns (B, OH, OW, N)
+    contiguous in ``out``'s type.
     """
     mode, out_dtype, s_next = _out_spec(out)
     wide = {torch.bfloat16: 2, torch.float32: 3}.get(xq.dtype)
@@ -158,18 +193,19 @@ def conv_int8(xq: torch.Tensor, w: torch.Tensor, k: int, stride: int,
     y = torch.empty((b, oh, ow, n), dtype=out_dtype, device=dev)
     if y.numel() == 0:
         return y
+    wt = _transposed(w, w_nk)
     ep = (_ptr(oscale) if mode else None, _ptr(bias) if mode else None,
           int(bool(relu)), mode, s_next)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if dense:
             rc = _lib().mm_tiled_launch(
-                wide or 0, xq.data_ptr(), w.data_ptr(), y.data_ptr(),
+                wide or 0, xq.data_ptr(), wt.data_ptr(), y.data_ptr(),
                 b * h * wd, n, cin, float(in_scale or 0.0), *ep, stream)
             _launched("mm_tiled", rc, (b * h * wd, n, cin))
         else:
             rc = _lib().conv_int8_launch(
-                xq.data_ptr(), w.data_ptr(), y.data_ptr(), *ep, b, h, wd, cin,
+                xq.data_ptr(), wt.data_ptr(), y.data_ptr(), *ep, b, h, wd, cin,
                 oh, ow, n, k, stride, rate, pad, stream)
             _launched("conv_int8", rc, (b, h, wd, cin, n, k, stride, rate))
     return y

@@ -186,3 +186,17 @@ def test_conv_quantizes_wide_input(dtype):
     with pytest.raises(ValueError, match="1x1 stride-1"):
         kernel.conv_int8(x, torch.zeros(9 * 48, 8, dtype=torch.int8), 3, 1,
                          1, 1, None, None, False, torch.int32, in_scale=scale)
+
+
+def test_transposed_operand_is_checked():
+    """The kernel reads B as (N, K): the wrapper takes a kept copy only
+    with the transposed shape, the same type and a contiguous layout, and
+    otherwise transposes B itself."""
+    w = torch.arange(12, dtype=torch.int8).reshape(3, 4)
+    made = kernel._transposed(w, None)
+    assert made.is_contiguous() and torch.equal(made, w.t())
+    kept = w.t().contiguous()
+    assert kernel._transposed(w, kept) is kept
+    for bad in (w, kept.float(), w.t()):     # shape, type, layout
+        with pytest.raises(ValueError, match="\\(N, K\\) copy"):
+            kernel._transposed(w, bad)

@@ -150,10 +150,13 @@ def test_kernel_rejects_what_it_does_not_take(cuda_device):
 # --------------------------------------------------------------------------
 
 # (k, Cin, Cout, stride, rate) at odd sizes: the ResNet-50 site kinds, and
-# channel counts that take the scalar (unaligned) load and store paths
+# channel counts that take the scalar (unaligned) load and store paths;
+# K = 576 and 4608 (3x3 over 64 and 512 channels) at N = 64: a half-empty
+# last K tile, a K that wraps the ring of 128-byte tiles several times, and
+# half-empty 128-wide N tiles
 GEMM_SITES = [(7, 3, 64, 2, 1), (1, 64, 32, 1, 1), (3, 32, 32, 2, 1),
               (3, 32, 48, 1, 2), (1, 64, 128, 2, 1), (3, 20, 29, 1, 1),
-              (1, 24, 40, 1, 1)]
+              (1, 24, 40, 1, 1), (3, 64, 64, 1, 1), (3, 512, 64, 1, 2)]
 
 
 def _forbid_plain(monkeypatch):
@@ -169,12 +172,16 @@ def _forbid_plain(monkeypatch):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(37, 50, 29), (128, 128, 128),
-                                   (300, 147, 64), (1000, 256, 520)])
+                                   (300, 147, 64), (1000, 256, 520),
+                                   (200, 64, 64), (130, 576, 72),
+                                   (129, 200, 136), (257, 4608, 136)])
 @pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
 def test_mm_tiled_matches_plain(cuda_device, monkeypatch, shape, dtype):
     """int8 -> int32 exactly; bf16 -> f32 within 1e-5 of the largest |value|
     (the kernel sums float32 products in float32, the plain version in
-    float64)."""
+    float64). (M, K, N): M tails (M % 128), K = 64, 147, 200 and 576 (a
+    half-empty last K tile; K % 64 != 0 for bf16), K = 4608 (the ring
+    wraps), N = 64 and N % 8 != 0 (the scalar store)."""
     from deepgraphpose_tpu_torch.ops import int8_gemm as gemm_plain
     from deepgraphpose_tpu_torch.ops.kernels import int8_gemm_kernel as gk
 
@@ -198,6 +205,33 @@ def test_mm_tiled_matches_plain(cuda_device, monkeypatch, shape, dtype):
         assert torch.equal(got, want)
     else:
         assert ((got - want).abs().max() <= 1e-5 * want.abs().max()).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pattern", ["identity_b", "identity_a", "random"])
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
+def test_mm_tiled_one_tile(cuda_device, monkeypatch, pattern, dtype):
+    """One 128x128x128 product, one block and one K tile: the shared-memory
+    swizzle and the wgmma descriptors alone. With B (or A) the identity
+    the product is the other operand itself, so a wrong layout shows as
+    moved values; B is passed as the (N, K) copy the kernel reads."""
+    from deepgraphpose_tpu_torch.ops import int8_gemm as gemm_plain
+    from deepgraphpose_tpu_torch.ops.kernels import int8_gemm_kernel as gk
+
+    rng = np.random.default_rng(3)
+    a = torch.from_numpy(rng.integers(-100, 100, (128, 128), dtype=np.int8))
+    b = torch.from_numpy(rng.integers(-100, 100, (128, 128), dtype=np.int8))
+    eye = torch.eye(128, dtype=torch.int8)
+    if pattern == "identity_b":
+        b = eye
+    elif pattern == "identity_a":
+        a = eye
+    a, b = a.to(cuda_device, dtype), b.to(cuda_device, dtype)
+    want = gemm_plain.mm(a, b)
+    _forbid_plain(monkeypatch)
+    got = gk.mm(a, b, b_nk=b.t().contiguous())
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 @pytest.mark.cuda
@@ -251,21 +285,32 @@ def test_conv_int8_matches_plain(cuda_device, monkeypatch, site):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("cin,cout", [(64, 32), (24, 40), (256, 72)])
+@pytest.mark.parametrize("cin,cout", [(64, 32), (24, 40), (256, 72),
+                                      (512, 64)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("values", ["normal", "half_integers"])
 def test_conv_int8_quantizes_wide_input_on_load(cuda_device, monkeypatch,
-                                                cin, cout, dtype):
+                                                cin, cout, dtype, values):
     """A wide 1x1 stride-1 input quantized by the kernel as it loads it
-    gives the plain quantize-then-conv accumulator exactly."""
+    gives the plain quantize-then-conv accumulator exactly: on normal
+    values, and on values whose quotients are exact half-integers (every
+    chunk then takes the kernel's division path, and rounds half to
+    even)."""
     from deepgraphpose_tpu_torch.ops import int8_gemm as gemm_plain
     from deepgraphpose_tpu_torch.ops.kernels import int8_gemm_kernel as gk
 
     rng = np.random.default_rng(2)
-    x = torch.from_numpy(rng.standard_normal((3, 17, 22, cin)).astype(
-        np.float32) * 3).to(cuda_device, dtype)
+    if values == "normal":
+        x = torch.from_numpy(rng.standard_normal((3, 17, 22, cin)).astype(
+            np.float32) * 3).to(cuda_device, dtype)
+        scale = float(np.float32(x.float().abs().max().item() / 100))
+    else:   # k / 8 with scale 1/4: quotients k / 2, beyond the clip too
+        x = torch.from_numpy(rng.integers(-1100, 1100, (3, 17, 22, cin)
+                                          ).astype(np.float32) / 8).to(
+            cuda_device, dtype)
+        scale = 0.25
     w = torch.from_numpy(rng.integers(-127, 128, (cin, cout),
                                       dtype=np.int8)).to(cuda_device)
-    scale = float(np.float32(x.float().abs().max().item() / 100))
     args = (x, w, 1, 1, 1, 0, None, None, False, torch.int32)
     want = gemm_plain.conv_int8(*args, in_scale=scale)
     _forbid_plain(monkeypatch)
@@ -283,6 +328,9 @@ def test_int8_gemm_rejects_what_it_does_not_take(cuda_device):
     a = torch.zeros(64, 32, dtype=torch.int8, device=cuda_device)
     with pytest.raises(ValueError):
         gk.mm(a.T, a)                    # not row-major contiguous
+    b = torch.zeros(32, 16, dtype=torch.int8, device=cuda_device)
+    with pytest.raises(ValueError):
+        gk.mm(a, b, b_nk=b)              # not the (N, K) transpose
     x = torch.zeros(2, 8, 8, 32, dtype=torch.int8, device=cuda_device)
     w = torch.zeros(9 * 32, 16, dtype=torch.int8, device=cuda_device)
     with pytest.raises(ValueError):

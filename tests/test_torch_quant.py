@@ -133,6 +133,7 @@ def test_quantize_model_matches_jax(setup):
         worst = max(worst, (q.bias - want[f"sites.{site}.bias"]).abs().max()
                     .item() / bias_scale)
     assert worst <= 1e-2
+    _kernel_copy_follows_qw(qmodel)
     for head in ("part_pred", "locref_pred"):
         torch.testing.assert_close(
             getattr(qmodel, head).block4.weight,
@@ -147,6 +148,37 @@ def test_weights_stay_two_dimensional_under_channels_last(setup):
     for q in qmodel.sites.values():
         assert q.qw.dim() == 2 and q.qw.is_contiguous()
         assert isinstance(q.act_scale, float)
+
+
+def _kernel_copy_follows_qw(qmodel):
+    for site, q in qmodel.sites.items():
+        assert q.qw_nk.shape == q.qw.shape[::-1], site
+        assert q.qw_nk.is_contiguous() and q.qw_nk.device == q.qw.device
+        assert torch.equal(q.qw_nk, q.qw.t()), site
+
+
+@pytest.mark.parametrize("step", ["load", "reload", "to"])
+def test_kernel_weight_copy_follows_qw(setup, step):
+    """``QuantConv.qw_nk`` (the (Cout, K) layout the GEMM kernel reads)
+    equals ``qw`` transposed after the JAX int8 variables load with
+    strict=True, after another state loads over them, and after ``.to()``;
+    it never enters the state_dict, whose keys stay those of
+    ``quant_state_from_flax``."""
+    _, _, qvars, cfg, _, _ = setup
+    state = quant_state_from_flax(qvars)
+    qmodel = quant.QuantizedPoseModel(cfg)
+    keys = set(qmodel.state_dict())
+    assert keys == set(state)
+    qmodel.load_state_dict(state, strict=True)
+    if step == "reload":
+        negated = {k: -v if k.endswith(".qw") else v for k, v in state.items()}
+        qmodel.load_state_dict(negated, strict=True)
+        assert torch.equal(qmodel.sites["conv1"].qw, -state["sites.conv1.qw"])
+    elif step == "to":
+        qmodel = qmodel.to(torch.device("cpu"), torch.float64)
+        assert qmodel.sites["conv1"].oscale.dtype == torch.float64
+    _kernel_copy_follows_qw(qmodel)
+    assert set(qmodel.state_dict()) == keys
 
 
 def test_inference_only_and_needs_state(setup):
