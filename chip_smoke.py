@@ -12,9 +12,12 @@ last line is then never printed:
    every kernel under deepgraphpose_tpu_torch/csrc for sm_90a;
 2. kernel: the CUDA decode kernel against its plain PyTorch version on the
    card (mu within 1e-4 cells, likelihood within 1e-5) at the maps of both
-   main-path phases (full frame and tracked crop) and a small odd shape,
-   and its time at each main-path shape beside its memory bound and the
-   plain version's time, for each candidate launch layout;
+   main-path phases (full frame and tracked crop) and at odd shapes (an
+   unaligned frame, also as a view one float into its storage, C = 1,
+   C = 33, C = 2000), and its time at each main-path shape beside its
+   memory bound and the plain version's time, for each candidate layout
+   (cluster size, threads, ring stages, chunk steps); and at batches 1,
+   16 and 64 of the full-frame maps, one to eight CTAs a frame;
 3. f32: the full ResNet-50 model in float32 (TF32 off) on 4 frames at
    747x832, ``infer_forward`` (kernel decode) against the same heads
    through the plain decode, and the card's part_pred logits of one frame
@@ -87,6 +90,7 @@ MM_SIZE = 4096                # the probe's M = N = K
 # int8 model against the f32 one (tests/test_quant.py:69-74)
 INT8_REL_ERR, INT8_CORR = 0.25, 0.99
 MU_TOL, LIK_TOL = 1e-4, 1e-5
+SMALL_BATCHES = (1, 16, 64)   # decode batches below the SM count
 # card vs CPU float32 logits, relative to the largest logit: both sum the
 # convolutions in float32, in different orders and algorithms
 LOGIT_RTOL = 1e-3
@@ -166,23 +170,64 @@ def decode_bound(shape) -> dict:
 
 
 def candidate_layouts(shape, sms: int):
-    """(joints per block, threads) layouts the kernel phase times: the
-    wrapper's choice, then one group of all joints and the split of joints
-    into groups that fill twice the SMs, each at about 512 and 1024
-    threads."""
-    from deepgraphpose_tpu_torch.ops.kernels import softargmax_kernel
+    """Launch layouts the kernel phase times: the wrapper's choice first,
+    then clusters of 1, 2, 4 and 8 CTAs a frame, rings of 2 and 4 slots,
+    chunks of 4, 8 and 16 thread rows, each with the column threads (whole map
+    rows, where C * W fits a CTA) and with about 256 threads of whole
+    pixels; those whose shared memory fits a CTA."""
+    from deepgraphpose_tpu_torch.ops.kernels import softargmax_kernel as sk
 
     batch, h, w, joints = shape
-    split = -(-joints // min(joints, -(-2 * sms // batch)))
-    found = [softargmax_kernel.launch_shape(h, w, joints)]
-    found += [(j, j * (t // j)) for j in (joints, split) for t in (512, 1024)]
-    return list(dict.fromkeys(found))
+    first = sk.launch_shape(batch, h, w, joints, sms)
+    per = sk.joint_group(joints)
+    threads = {per * max(1, 256 // per)}
+    if per == joints and per * w <= sk.MAX_THREADS:
+        threads.add(per * w)
+    found = [first] + [
+        sk.Layout(cluster, t, stages, steps)
+        for cluster in (1, 2, 4, 8) for t in sorted(threads)
+        for stages in (2, 4) for steps in (4, 8, 16)]
+    return [lay for lay in dict.fromkeys(found)
+            if sk.smem_bytes(h, w, joints, lay) <= 232448]
+
+
+def offset_view(x):
+    """``x`` as a contiguous view that starts one float into its storage."""
+    import torch
+
+    store = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    store[1:].copy_(x.reshape(-1))
+    return store[1:].view(x.shape)
+
+
+def kernel_registers() -> dict:
+    """Registers a thread of each decode kernel instantiation, from ptxas's
+    report in this run's build (empty if the library was built before)."""
+    import re
+
+    from deepgraphpose_tpu_torch.ops.kernels import build
+
+    regs, name = {}, None
+    for line in build.build_logs.get("softargmax", "").splitlines():
+        found = re.search(r"entry function '(\w+)'", line)
+        if found:
+            name = found.group(1)
+        found = re.search(r"Used (\d+) registers", line)
+        if found and name:
+            inst = re.search(r"kernelILi(\d+)ELb(\d)E", name)
+            key = (f"steps{inst.group(1)}_column{inst.group(2)}" if inst
+                   else name)
+            regs[key] = int(found.group(1))
+            name = None
+    return regs
 
 
 def phase_kernel(cfg, device):
     """The decode kernel against its plain version at the main path's two
-    map shapes (full frame and tracked crop) and a small odd one, then its
-    time at each main-path shape, for each candidate layout."""
+    map shapes (full frame and tracked crop) and at odd ones (an unaligned
+    frame, a view at a storage offset of one float, C = 1, C = 33, and
+    C = 2000 in joint groups), then
+    its time at each main-path shape, for each candidate layout."""
     import numpy as np
     import torch
 
@@ -192,9 +237,12 @@ def phase_kernel(cfg, device):
 
     full = (BATCH, *scoremap_size(cfg, HW), NUM_JOINTS)
     crop = (BATCH, *scoremap_size(cfg, CROP_HW), NUM_JOINTS)
+    odd = [(3, 23, 31, 4), (2, 23, 31, 7), (8, *full[1:3], 1),
+           (4, *crop[1:3], 33), (2, 8, 8, 2000)]
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     rng = np.random.default_rng(SEED)
     worst_mu = worst_lik = 0.0
+    checked = []
 
     def check(x, gamma, gauss_len, layout=None):
         nonlocal worst_mu, worst_lik
@@ -212,12 +260,16 @@ def phase_kernel(cfg, device):
 
     g, s = cfg.gamma, cfg.gauss_len
     shapes = []
-    for shape in (full, crop, (3, 23, 31, 4)):
+    for shape in (full, crop, *odd):
         x = maps(shape)
-        for gauss_len in (0.0, 1.0, 2.0):
-            for gamma in (1.0, 2.5):
-                check(x, gamma, gauss_len)
-        if shape == (3, 23, 31, 4):
+        views = [x, offset_view(x)] if shape == odd[1] else [x]
+        for view in views:
+            for gauss_len in (0.0, 1.0, 2.0):
+                for gamma in (1.0, 2.5):
+                    check(view, gamma, gauss_len)
+        checked.append({"shape": list(shape), "storage_offsets": [
+            v.storage_offset() for v in views]})
+        if shape in odd:
             continue
         layouts = candidate_layouts(shape, sms)    # the wrapper's one first
         for layout in layouts:
@@ -226,16 +278,39 @@ def phase_kernel(cfg, device):
         bound = decode_bound(shape)
         ring = [x] + [maps(shape) for _ in range(
             min(64, max(4, -(-100_000_000 // bound["bytes"]))) - 1)]
-        by_layout = [{"joints_per_block": j, "threads": t, "ms": time_ms(
-            lambda x: softargmax_kernel.softargmax_likelihood(
-                x, g, s, layout=(j, t)), ring, 200)} for j, t in layouts]
+        by_layout = [{**lay._asdict(), "ms": time_ms(
+            lambda x, lay=lay: softargmax_kernel.softargmax_likelihood(
+                x, g, s, layout=lay), ring, 200)} for lay in layouts]
         shapes.append({
             "shape": list(shape), "ms": by_layout[0]["ms"],
+            "layout": by_layout[0],
+            "fastest": min(by_layout, key=lambda d: d["ms"]),
             "plain_ms": time_ms(lambda x: plain.softargmax_likelihood(
                 x, g, s), ring, 20),
             **bound, "by_layout": by_layout})
+    # batches below the SM count, where a cluster splits each frame: the
+    # wrapper's layout, then 1 to 8 CTAs a frame (inputs of these sizes
+    # stay in the L2, as the heads' output does)
+    small = []
+    for batch in SMALL_BATCHES:
+        shape = (batch, *full[1:])
+        x = maps(shape)
+        chosen = softargmax_kernel.launch_shape(*shape, sms)
+        layouts = [chosen] + [chosen._replace(cluster=k, stages=2, steps=8)
+                              for k in (1, 2, 4, 8)]
+        for layout in layouts:
+            check(x, g, s, layout)
+        ring = [x] + [maps(shape) for _ in range(3)]
+        small.append({"shape": list(shape), "layout": chosen._asdict(),
+                      "by_cluster": [{**lay._asdict(), "ms": time_ms(
+                          lambda x, lay=lay:
+                          softargmax_kernel.softargmax_likelihood(
+                              x, g, s, layout=lay), ring, 200)}
+                          for lay in layouts]})
     out = {"phase": "kernel", "max_abs_err_mu": worst_mu,
-           "max_abs_err_lik": worst_lik, "shapes": shapes}
+           "max_abs_err_lik": worst_lik, "checked": checked,
+           "registers": kernel_registers(), "shapes": shapes,
+           "small_batches": small}
     emit(out)
     return out
 
@@ -970,8 +1045,11 @@ def main() -> int:
         "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
         "bound_ms": main_shape["bound_ms"], "bound_by": main_shape["bound_by"],
         "library_ms": None,
+        "cluster": main_shape["layout"]["cluster"],
+        "registers": kern["registers"],
         "shapes": [{k: d[k] for k in ("shape", "ms", "plain_ms", "bound_ms",
-                                      "bound_by")} for d in kern["shapes"]],
+                                      "bound_by", "layout")}
+                   for d in kern["shapes"]],
     }, {
         "name": "mm_tiled", "route": "cuda",
         "source": "deepgraphpose_tpu_torch/csrc/int8_gemm.cu",

@@ -13,7 +13,9 @@ launches, so a run can show that its main path went through the kernel.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from deepgraphpose_tpu_torch.ops import softargmax as plain
@@ -21,8 +23,24 @@ from deepgraphpose_tpu_torch.ops.kernels import build
 
 launches = 0
 _weights_cache: dict = {}
-_MAX_THREADS = 1024
-_UNROLL = 16            # pixels a thread loads per step (kUnroll in the .cu)
+_sm_count: dict = {}
+MAX_THREADS = 544       # consumer threads a CTA; a producer warp joins them
+_MAX_STAGES = 8
+_MAX_SMEM = 232448      # bytes of shared memory a CTA may use on sm_90
+H100_SMS = 132
+
+
+class Layout(NamedTuple):
+    """A launch of the kernel: clusters of ``cluster`` CTAs split each frame
+    (joint group) into contiguous pixel ranges; a CTA of ``threads``
+    consumers (and one producer warp) streams its range through ``stages``
+    ring slots of ``steps`` pixel rows of consumers. Where threads / joints
+    is a multiple of the map width, each consumer keeps one pixel column
+    (the kernel's column path)."""
+    cluster: int
+    threads: int
+    stages: int
+    steps: int
 
 
 def _check(scoremaps: torch.Tensor) -> None:
@@ -37,34 +55,109 @@ def _check(scoremaps: torch.Tensor) -> None:
         raise ValueError("scoremaps must be contiguous (B, H, W, C)")
 
 
+def kernel_weights(h: int, w: int, gauss_len: float,
+                   truncate: float = 1.0) -> np.ndarray:
+    """The weight vectors as the kernel reads them: pairs (A(i), Ar(i)) for
+    i < H, then (B(j), Bc(j)) for j < W, zero-padded to a multiple of 4
+    floats (one bulk copy of whole 16-byte units)."""
+    a, ar, b, bc = np.split(
+        plain.smoothing_weights(h, w, gauss_len, truncate),
+        np.cumsum([h, h, w]))
+    pairs = np.concatenate([np.stack([a, ar], 1).ravel(),
+                            np.stack([b, bc], 1).ravel()])
+    return np.pad(pairs, (0, -pairs.size % 4))
+
+
 def _weights(h: int, w: int, gauss_len: float, truncate: float,
              device: torch.device) -> torch.Tensor:
     key = (h, w, float(gauss_len), float(truncate), device)
     wts = _weights_cache.get(key)
-    if wts is None:
-        host = torch.from_numpy(
-            plain.smoothing_weights(h, w, gauss_len, truncate))
-        wts = host.to(device)
+    if wts is None:     # a fresh allocation: 16-byte aligned
+        wts = torch.from_numpy(kernel_weights(h, w, gauss_len,
+                                              truncate)).to(device)
         _weights_cache[key] = wts
     return wts
 
 
-def launch_shape(h: int, w: int, joints: int) -> tuple[int, int]:
-    """(joints per block J, threads per block) for (H, W, C) maps.
+def joint_group(joints: int) -> int:
+    """Joints a CTA owns (J): all of them up to MAX_THREADS, else an even
+    split."""
+    groups = -(-joints // MAX_THREADS)
+    return -(-joints // groups)
 
-    One block reads all joints of a frame (J = C), so a warp reads
-    contiguous floats. Its rows of threads are as many as give each thread
-    two steps of ``_UNROLL`` pixels, up to the block's thread limit. On the
-    H100 this was the fastest of the layouts ``chip_smoke.py`` times at the
-    main path's full-frame and tracked-crop maps (PERF.md).
+
+def smem_bytes(h: int, w: int, joints: int, layout: Layout) -> int:
+    """Dynamic shared memory of a launch (smem_bytes in the .cu):
+    the barriers, the ring, the weight vectors and the per-joint partials
+    of each rank of a cluster."""
+    per = joint_group(joints)
+    slot = (layout.steps * (layout.threads // per) * joints + 7) & ~3
+    floats = layout.stages * slot + 2 * (h + w)
+    return (16 * _MAX_STAGES + 16 + 4 * ((floats + 3) & ~3)
+            + 16 * per * layout.cluster)
+
+
+def launch_shape(batch: int, h: int, w: int, joints: int,
+                 sms: int = H100_SMS) -> Layout:
+    """The launch for (B, H, W, C) maps on a card with ``sms`` SMs.
+
+    Threads: whole map rows of every joint (one pixel column a consumer)
+    where C * W fits a CTA, else about 512 consumers of all the CTA's
+    joints; a consumer gets 4 pixels at least. Cluster: 1 while the
+    frames (times joint groups) fill half the SMs, else the smallest of 2,
+    4, 8 that does while each CTA keeps two chunks of 8 steps: at B = 128
+    on the H100 every cluster size is one wave of the same work an SM and
+    a cluster only adds its CTAs' fixed latency, while at B = 1, 16 and 64
+    clusters were up to 1.7x faster than one CTA a frame (PERF.md).
+    Steps: the largest of 16, 8, 4 of which a CTA holds two chunks.
+    Stages: 2, fewer where a CTA has one chunk.
     """
-    per_block = min(joints, _MAX_THREADS)
-    rows = min(_MAX_THREADS // per_block, -(-(h * w) // (2 * _UNROLL)))
-    return per_block, per_block * max(rows, 1)
+    per = joint_group(joints)
+    groups = -(-joints // per)
+    hw = h * w
+    if per == joints and per * w <= MAX_THREADS:   # no more rows than h / 4
+        threads = per * w * max(1, min(512 // (per * w), h // 4))
+    else:
+        threads = per * max(1, min(512 // per, hw // 4))
+    rows = threads // per
+    cluster = 1
+    while (cluster < 8 and 2 * batch * groups * cluster < sms
+           and hw >= 2 * cluster * 2 * 8 * rows):
+        cluster *= 2
+    per_cta = -(-hw // cluster)
+    steps = next((s for s in (16, 8) if 2 * s * rows <= per_cta), 4)
+    stages = 2 if per_cta > steps * rows else 1
+    layout = Layout(cluster, threads, stages, steps)
+    if smem_bytes(h, w, joints, layout) > _MAX_SMEM:
+        layout = layout._replace(stages=1)
+    return layout
+
+
+_lib_typed = None
+
+
+def _lib():
+    global _lib_typed
+    if _lib_typed is None:
+        lib = build.load("softargmax")
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.softargmax_likelihood_launch.restype = i
+        lib.softargmax_likelihood_launch.argtypes = [p] * 4 + [i] * 9 + [
+            ctypes.c_float, p]
+        _lib_typed = lib
+    return _lib_typed
+
+
+def _sms(dev: torch.device) -> int:
+    n = _sm_count.get(dev)
+    if n is None:
+        n = torch.cuda.get_device_properties(dev).multi_processor_count
+        _sm_count[dev] = n
+    return n
 
 
 def _launch(scoremaps: torch.Tensor, gamma: float, gauss_len: float,
-            truncate: float, layout: tuple[int, int] | None = None):
+            truncate: float, layout: Layout | None = None):
     global launches
     b, h, w, c = scoremaps.shape
     dev = scoremaps.device
@@ -72,32 +165,28 @@ def _launch(scoremaps: torch.Tensor, gamma: float, gauss_len: float,
     lik = torch.empty((b, c), dtype=torch.float32, device=dev)
     if b == 0 or c == 0:
         return mu, lik
-    lib = build.load("softargmax")
-    fn = lib.softargmax_likelihood_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
-        ctypes.c_float, ctypes.c_void_p]
+    fn = _lib().softargmax_likelihood_launch
     with torch.cuda.device(dev):
         wts = _weights(h, w, gauss_len, truncate, dev)
-        per_block, threads = layout or launch_shape(h, w, c)
+        lay = layout or launch_shape(b, h, w, c, _sms(dev))
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(scoremaps.data_ptr(), wts.data_ptr(), mu.data_ptr(),
-                lik.data_ptr(), b, h, w, c, per_block, threads, float(gamma),
-                stream)
+                lik.data_ptr(), b, h, w, c, joint_group(c), lay.threads,
+                lay.cluster, lay.stages, lay.steps, float(gamma), stream)
     if rc != 0:
         raise RuntimeError(f"softargmax_likelihood launch failed: CUDA error "
-                           f"{rc} at shape {(b, h, w, c)}")
+                           f"{rc} at shape {(b, h, w, c)}, layout {lay}")
     launches += 1
     return mu, lik
 
 
 def softargmax_likelihood(scoremaps: torch.Tensor, gamma: float,
                           gauss_len: float, truncate: float = 1.0,
-                          layout: tuple[int, int] | None = None):
+                          layout: Layout | None = None):
     """Forward-only decode: (mu (B, C, 2), lik (B, C)) float32.
 
-    ``layout`` = (joints per block, threads per block) overrides
-    :func:`launch_shape`, so that layouts can be timed against each other.
+    ``layout`` overrides :func:`launch_shape`, so that layouts can be timed
+    against each other.
     """
     _check(scoremaps)
     if scoremaps.device.type == "cpu":

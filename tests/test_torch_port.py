@@ -32,6 +32,10 @@ BLOCKED = ("jax", "flax", "optax", "deepgraphpose_tpu")
 _CFG = PoseConfig(net_type="resnet_50", num_joints=5)
 FULL_MAPS = (128, *scoremap_size(_CFG, (747, 832)), 5)
 CROP_MAPS = (128, *scoremap_size(_CFG, (408, 448)), 5)
+# output_stride 8's full frame, 16 frames
+STRIDE8_MAPS = (16, *scoremap_size(
+    PoseConfig(net_type="resnet_50", num_joints=5, output_stride=8),
+    (747, 832)), 5)
 
 
 def port_modules():
@@ -102,7 +106,13 @@ def check_against_plain(x: torch.Tensor, gamma: float, gauss_len: float,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [FULL_MAPS, CROP_MAPS, (3, 23, 31, 4)])
+@pytest.mark.parametrize("shape", [
+    FULL_MAPS, CROP_MAPS, (3, 23, 31, 4),
+    (2, 23, 31, 7),                 # H*W*C odd: frames start unaligned
+    (1, *FULL_MAPS[1:]),            # one frame
+    (8, *FULL_MAPS[1:3], 1), (4, *CROP_MAPS[1:3], 33),
+    (2, 8, 8, 2000),                # joints split over four CTAs a frame
+    STRIDE8_MAPS])                  # a frame larger than the ring
 @pytest.mark.parametrize("gauss_len", [0.0, 1.0, 2.0])
 @pytest.mark.parametrize("gamma", [1.0, 2.5])
 def test_kernel_matches_plain(cuda_device, shape, gauss_len, gamma):
@@ -112,16 +122,42 @@ def test_kernel_matches_plain(cuda_device, shape, gauss_len, gamma):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", [FULL_MAPS, (2, 23, 31, 7), (3, 9, 13, 1)])
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_kernel_takes_a_storage_offset(cuda_device, shape, offset):
+    """A contiguous view that starts 4, 8 or 12 bytes past its storage:
+    every chunk's aligned body moves, and its head and tail change."""
+    n = int(np.prod(shape))
+    x = np.random.default_rng(3).standard_normal(n + offset).astype(
+        np.float32)
+    store = torch.from_numpy(x * 3).to(cuda_device)
+    check_against_plain(store[offset:].view(shape), 2.5, 2.0)
+
+
+# (cluster, pixel rows of threads, stages, steps); rows "W" is the map's
+# width, a column layout. 6 rows of 5 joints is a CTA of less than a warp.
+# (One row at the full-frame maps sums 9776 terms in one thread, and its
+# float32 rounding then reaches 2.6e-4 cells.)
+LAYOUTS = [(1, 6, 1, 4), (2, 64, 2, 8), (4, "W", 3, 8), (8, 70, 4, 4),
+           (8, "W", 8, 4), (2, 37, 5, 8), (1, "W", 2, 16), (2, 75, 3, 16)]
+
+
+def layout_for(shape, spec):
+    cluster, rows, stages, steps = spec
+    threads = shape[3] * (shape[2] if rows == "W" else rows)
+    return kernel.Layout(cluster, threads, stages, steps)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("shape", [FULL_MAPS, CROP_MAPS, (2, 9, 13, 7)])
-@pytest.mark.parametrize("layout", [(1, 256), (2, 512), (3, 1023), (5, 510),
-                                    (7, 1022)])
+@pytest.mark.parametrize("layout", LAYOUTS, ids=str)
 def test_kernel_layouts_match_plain(cuda_device, shape, layout):
-    """Every (joints per block, threads) layout computes the same decode,
-    including groups that do not divide the joints and blocks with more
-    threads than pixels."""
+    """Every layout computes the same decode: clusters of 1 to 8 CTAs a
+    frame, rings of 1 to 8 slots, column and general thread layouts, and
+    CTAs with more threads than pixels."""
     x = np.random.default_rng(2).standard_normal(shape).astype(np.float32)
     check_against_plain(torch.from_numpy(x * 3).to(cuda_device), 2.5, 2.0,
-                        layout)
+                        layout_for(shape, layout))
 
 
 @pytest.mark.cuda
@@ -143,6 +179,14 @@ def test_kernel_rejects_what_it_does_not_take(cuda_device):
         kernel.softargmax_likelihood(x.half(), 1.0, 1.0)
     with pytest.raises(ValueError):
         kernel.softargmax_likelihood(x.permute(0, 2, 1, 3), 1.0, 1.0)
+    # a launch the kernel refuses raises; it does not fall back
+    before = kernel.launches
+    for bad in (kernel.Layout(3, 3, 1, 4),     # cluster of 3
+                kernel.Layout(2, 3, 9, 4),     # 9 stages
+                kernel.Layout(2, 4, 1, 4)):    # not a multiple of C
+        with pytest.raises(RuntimeError):
+            kernel.softargmax_likelihood(x, 1.0, 1.0, layout=bad)
+    assert kernel.launches == before
 
 
 # --------------------------------------------------------------------------

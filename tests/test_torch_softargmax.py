@@ -180,13 +180,177 @@ def test_wrapper_checks_inputs():
     assert kernel.launches == before  # the CPU path launches nothing
 
 
-@pytest.mark.parametrize("h, w, joints", [(94, 104, 5), (52, 56, 5),
-                                          (23, 31, 4), (4, 4, 3),
-                                          (64, 64, 40), (8, 8, 2000)])
-def test_launch_shape(h, w, joints):
-    per_block, threads = kernel.launch_shape(h, w, joints)
-    assert per_block == min(joints, 1024) and threads % per_block == 0
-    assert per_block <= threads <= 1024
-    rows = threads // per_block
-    # two steps of 16 pixels for each thread, unless the block is full
-    assert rows == 1024 // per_block or rows == -(-(h * w) // 32)
+# (batch, h, w, joints): the main path's full-frame and crop maps, output
+# stride 8's full frame, a single frame, small odd maps, and more joints
+# than a CTA's threads
+LAUNCH_CASES = [(128, 94, 104, 5), (128, 52, 56, 5), (128, 186, 208, 5),
+                (1, 94, 104, 5), (3, 23, 31, 4), (2, 4, 4, 3),
+                (4, 64, 64, 40), (2, 8, 8, 2000)]
+
+
+@pytest.mark.parametrize("batch, h, w, joints", LAUNCH_CASES)
+def test_launch_shape(batch, h, w, joints):
+    lay = kernel.launch_shape(batch, h, w, joints)
+    per = kernel.joint_group(joints)
+    assert per == joints if joints <= kernel.MAX_THREADS else (
+        per <= kernel.MAX_THREADS)
+    assert lay.cluster in (1, 2, 4, 8) and 1 <= lay.stages <= 8
+    assert lay.steps in (4, 8, 16)
+    assert per <= lay.threads <= kernel.MAX_THREADS
+    assert lay.threads % per == 0
+    assert kernel.smem_bytes(h, w, joints, lay) <= 227 * 1024
+    rows = lay.threads // per
+    # clusters only while the frames leave half the SMs idle, and each CTA
+    # of a cluster keeps a chunk of pixels
+    groups = -(-joints // per)
+    sms = kernel.H100_SMS
+    assert lay.cluster == 1 or 2 * batch * groups * (lay.cluster // 2) < sms
+    assert lay.cluster == 8 or 2 * batch * groups * lay.cluster >= sms or (
+        h * w < 2 * lay.cluster * 16 * rows)
+    assert lay.cluster == 1 or h * w >= lay.cluster * 16 * rows
+    assert lay.steps == 4 or 2 * lay.cluster * lay.steps * rows <= h * w
+    if batch == 128 and (h, w) == (94, 104):    # the measured fastest
+        assert lay == kernel.Layout(1, 520, 2, 16)
+    if batch == 1 and (h, w) == (94, 104):
+        assert lay == kernel.Layout(4, 520, 2, 8)
+    if joints * w <= kernel.MAX_THREADS:        # one column a consumer
+        assert rows % w == 0
+
+
+@pytest.mark.parametrize("h, w", [(94, 104), (23, 31), (3, 2)])
+def test_kernel_weights_are_interleaved_and_padded(h, w):
+    """The kernel's copy of the weight vectors: (A, Ar) pairs, then (B, Bc)
+    pairs, zero-padded to whole 16-byte units for its bulk copy."""
+    a, ar, b, bc = np.split(plain.smoothing_weights(h, w, 2.0),
+                            np.cumsum([h, h, w]))
+    got = kernel.kernel_weights(h, w, 2.0)
+    assert got.dtype == np.float32 and got.size % 4 == 0
+    assert got.size - 2 * (h + w) < 4 and not got[2 * (h + w):].any()
+    np.testing.assert_array_equal(got[0:2 * h:2], a)
+    np.testing.assert_array_equal(got[1:2 * h:2], ar)
+    np.testing.assert_array_equal(got[2 * h:2 * (h + w):2], b)
+    np.testing.assert_array_equal(got[2 * h + 1:2 * (h + w):2], bc)
+
+
+def simulate_kernel(x, weights, gamma, layout, offset=0):
+    """The CUDA kernel's schedule in numpy: clusters of ranks over pixel
+    ranges, chunks of ``steps`` thread rows, the 16-byte aligned body of a
+    chunk from its slot and the head and tail from x, a max a chunk, the
+    column sums, then the merges. ``offset`` is the floats by which x's
+    start lies past a 16-byte boundary. Returns (mu, how often each logit
+    was read)."""
+    bsz, h, w, c = x.shape
+    flat = x.reshape(-1)
+    reads = np.zeros(flat.size, np.int64)
+    per = kernel.joint_group(c)
+    threads, k, steps = layout.threads, layout.cluster, layout.steps
+    rows = threads // per
+    column = rows % w == 0
+    slot = (steps * rows * c + 7) & ~3
+    a_w, ar_w, b_w, bc_w = np.split(weights.astype(np.float32),
+                                    np.cumsum([h, h, w]))
+    scale = np.float32(gamma * 1.4426950408889634)
+    t = np.arange(threads)
+    cl, row = t % per, t // per
+    mu = np.zeros((bsz, c, 2))
+    hw, chunk_px = h * w, steps * rows
+
+    def merge(a, b):
+        m = np.maximum(a[0], b[0])
+        fa = np.where(a[0] == -np.inf, 0, np.exp2(a[0] - m))
+        fb = np.where(b[0] == -np.inf, 0, np.exp2(b[0] - m))
+        return (m, *(a[i] * fa + b[i] * fb for i in (1, 2, 3)))
+
+    for b in range(bsz):
+        base = b * hw * c
+        for c0 in range(0, c, per):
+            jg = min(per, c - c0)
+            active = cl < jg
+            total = None
+            for rank in range(k):
+                p_lo, p_hi = rank * hw // k, (rank + 1) * hw // k
+                q = p_lo + row
+                i, j = q // w, q % w
+                m = np.full(threads, -np.inf, np.float32)
+                s0, sr, sc = (np.zeros(threads, np.float32) for _ in range(3))
+                for q0 in range(p_lo, p_hi, chunk_px):
+                    q1 = min(q0 + chunk_px, p_hi)
+                    ga, n = base + q0 * c, (q1 - q0) * c
+                    head = min((4 - (offset + ga) % 4) % 4, n)
+                    body = (n - head) & ~3
+                    lead = (4 - head) % 4
+                    assert (lead + head) % 4 == 0 or body == 0
+                    assert lead + head + body <= slot
+                    v = np.full((steps, threads), -np.inf, np.float32)
+                    for u in range(steps):
+                        ok = active & (q + u * rows < q1)
+                        loc = (q - q0) * c + c0 + cl + u * rows * c
+                        assert (loc[ok] < n).all()
+                        reads[ga + loc[ok]] += 1
+                        v[u, ok] = flat[ga + loc[ok]] * scale
+                    mc = v.max(0)
+                    up = mc > m
+                    f = np.exp2(m[up] - mc[up])
+                    s0[up] *= f
+                    sr[up] *= f
+                    sc[up] *= f
+                    m[up] = mc[up]
+                    for u in range(steps):
+                        ok = active & (q + u * rows < q1)
+                        e = np.exp2(v[u, ok] - m[ok])
+                        ii, jj = i[ok], j[ok]
+                        if column:
+                            s0[ok] += e * a_w[ii]
+                            sr[ok] += e * ar_w[ii]
+                        else:
+                            s0[ok] += e * a_w[ii] * b_w[jj]
+                            sc[ok] += e * a_w[ii] * bc_w[jj]
+                            sr[ok] += e * ar_w[ii] * b_w[jj]
+                        i, j = i + rows // w, j + rows % w
+                        if not column:
+                            i, j = i + (j >= w), np.where(j >= w, j - w, j)
+                    q = q + chunk_px
+                if column:
+                    jj = (p_lo + row) % w
+                    s0, sr, sc = b_w[jj] * s0, b_w[jj] * sr, bc_w[jj] * s0
+                acc = None
+                for r in range(rows):      # the CTA's merge of each joint
+                    sel = slice(r * per, r * per + jg)
+                    part = (m[sel], s0[sel], sr[sel], sc[sel])
+                    acc = part if acc is None else merge(acc, part)
+                total = acc if total is None else merge(total, acc)
+            mu[b, c0:c0 + jg, 0] = total[2] / total[1]
+            mu[b, c0:c0 + jg, 1] = total[3] / total[1]
+    return mu, reads
+
+
+SIM_CASES = [
+    # the crop's maps (fewer frames), its own layout and a general one
+    ((2, 52, 56, 5), None, 0),
+    ((2, 52, 56, 5), kernel.Layout(2, 510, 2, 4), 0),
+    ((2, 52, 56, 5), kernel.Layout(1, 280, 3, 16), 2),
+    # an odd frame (H*W*C odd) at a storage offset: heads and tails
+    ((3, 23, 31, 7), kernel.Layout(4, 217, 2, 8), 1),
+    ((3, 23, 31, 7), kernel.Layout(8, 511, 1, 4), 3),
+    ((2, 9, 13, 1), None, 2),
+    ((2, 11, 12, 33), kernel.Layout(2, 396, 3, 4), 0),
+    # joints split over two groups
+    ((1, 3, 5, 1100), None, 1),
+]
+
+
+@pytest.mark.parametrize("shape, layout, offset", SIM_CASES)
+def test_kernel_schedule_reads_every_logit_once(shape, layout, offset):
+    """The kernel's index arithmetic, run in numpy: every logit is read
+    exactly once, slots hold their chunks, and the decode matches the
+    plain version within 1e-4 cells."""
+    x = logits(shape, seed=7)
+    b, h, w, c = shape
+    lay = layout or kernel.launch_shape(b, h, w, c)
+    assert kernel.smem_bytes(h, w, c, lay) <= 227 * 1024
+    wts = plain.smoothing_weights(h, w, 2.0)
+    mu, reads = simulate_kernel(x, wts, 2.5, lay, offset)
+    assert (reads == 1).all()
+    want, _ = plain.softargmax_2d(torch.from_numpy(x), gamma=2.5,
+                                  gauss_len=2.0)
+    np.testing.assert_allclose(mu, want.numpy(), rtol=0, atol=1e-4)
