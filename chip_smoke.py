@@ -11,10 +11,12 @@ last line is then never printed:
 1. device: the card's name and power limit (nvidia-smi), then nvcc builds
    every kernel under deepgraphpose_tpu_torch/csrc for sm_90a;
 2. kernel: the CUDA decode kernel against its plain PyTorch version on the
-   card (mu within 1e-4 cells, likelihood within 1e-5) at the maps of both
-   main-path phases (full frame and tracked crop) and at odd shapes (an
-   unaligned frame, also as a view one float into its storage, C = 1,
-   C = 33, C = 2000), and its time at each main-path shape beside its
+   card (mu within 1e-4 cells of the plain version in float64, likelihood
+   within 1e-5) at the maps of both main-path phases (full frame and
+   tracked crop) and at odd shapes (an unaligned frame, also as a view one
+   float into its storage, C = 1, C = 33, C = 2000, 300 joints on the
+   full-frame maps and 40 on output stride 8's, and the training steps'
+   11 and 2 frames), and its time at each main-path shape beside its
    memory bound and the plain version's time, for each candidate layout
    (cluster size, threads, ring stages, chunk steps); and at batches 1,
    16 and 64 of the full-frame maps, one to eight CTAs a frame;
@@ -51,17 +53,36 @@ last line is then never printed:
    the plain version on that conv's own input: int32 exact, the call's
    own output within 1 bf16 ulp or +-1 on at most 1e-4 of the int8
    values;
-11. profile: where the device time goes, from torch.profiler over 3
-    full-frame batches, 3 tracked-crop steps and 3 int8 full-frame
-    batches (device ms per batch by kernel class, device busy share);
-12. the ``{"kernels": [...]}`` line;
-13. ``{"ok": true, "device": {...}}``.
+11. train_parity: one DGP step-2 update of ResNet-50 (3 frames of
+    128x160, a limb clique, wt > 0, seeded flow) from one init and batch,
+    frozen and trainable batch-norm, TF32 off: on the card in float32, on
+    the CPU in float32 and in float64. Card and CPU float32 loss terms
+    within 1e-5 relative; against the float64 step the card's parameters
+    (1e-5) and momentum traces (1e-4 of a tensor's largest value) within
+    those bounds or no farther than twice the CPU's float32 step; and
+    the gradient of mu through the kernel path against the plain path's
+    on step 2's (11, 94, 104, 5) maps;
+12. train_step0, train_step1, train_step2: the DGP chain at 747x832,
+    ResNet-50 in float32 with trainable batch-norm, one model through the
+    three steps: the DLC step at batch 1, step 1 at pad_to 2, step 2 at
+    pad_to 11 (limb clique, wt > 0, flow from OpenCV's Farneback where
+    cv2 imports, else a seeded field), batches from ``assemble_batch``
+    over in-memory moving-blob frames; 2 warm-up and 10 timed steps each,
+    host-fed (the batch copied to the card every step): steps/s, frames/s,
+    peak memory, first and last loss (finite and falling), the decode
+    launches (one per DGP step, none in the DLC step) and layout;
+13. profile: where the device time goes, from torch.profiler over 3
+    full-frame batches, 3 tracked-crop steps, 3 int8 full-frame batches
+    and 3 step-2 train steps (device ms per batch by kernel class, device
+    busy share);
+14. the ``{"kernels": [...]}`` line;
+15. ``{"ok": true, "device": {...}}``.
 
 Every kernel wrapper counts its launches; the counts are set to 0 just
-before each main-path run (phases 4, 5, 8 and 10) and read just after,
-and every kernel that the path runs must show launches > 0. The weights
-are random, from a seeded torch.Generator; nothing is read from disk but
-the repository's own sources.
+before each main-path run (phases 4, 5, 8, 10 and 12) and read just
+after, and every kernel that the path runs must show launches > 0. The
+weights are random, from a seeded torch.Generator; nothing is read from
+disk but the repository's own sources.
 """
 
 from __future__ import annotations
@@ -91,6 +112,14 @@ MM_SIZE = 4096                # the probe's M = N = K
 INT8_REL_ERR, INT8_CORR = 0.25, 0.99
 MU_TOL, LIK_TOL = 1e-4, 1e-5
 SMALL_BATCHES = (1, 16, 64)   # decode batches below the SM count
+TRAIN_BATCH = 10              # the demo's --batch_size; step 2 pads to + 1
+TRAIN_FRAMES = 32             # moving-blob frames the training phases read
+TRAIN_LABELED = (3, 6, 9, 14, 20)   # of them, labeled
+TRAIN_WINDOW = 4              # step 2's window: frames 4..13, 2 labeled
+TRAIN_WARMUP, TRAIN_STEPS = 2, 10
+TRAIN_LR = 0.005              # fit_dgp's rate (fit.py::_dgp_cfg_overrides)
+TRAIN_PARITY_HW = (128, 160)  # card against CPU: ResNet-50 on 3 frames
+TRAIN_PARITY_FRAMES = 3
 # card vs CPU float32 logits, relative to the largest logit: both sum the
 # convolutions in float32, in different orders and algorithms
 LOGIT_RTOL = 1e-3
@@ -111,9 +140,12 @@ def card_line() -> str:
 def kernel_errors(x, gamma, gauss_len, layout=None):
     """(mu err in cells, lik err) of the kernel against the plain version.
 
-    The likelihood is held against the plain 2x2 read at the kernel's own
-    cell: where mu lies within 1e-4 of an integer the two versions may
-    floor to neighbouring cells, and both reads are then right.
+    mu is held against the plain version evaluated in float64 on the same
+    logits: in float32 it rounds gamma * x itself, up to 9e-5 cells from
+    float64 on large maps of noise. The likelihood is held against the
+    plain 2x2 read at the kernel's own cell: where mu lies within 1e-4 of
+    an integer the two versions may floor to neighbouring cells, and both
+    reads are then right.
     """
     import torch
 
@@ -123,10 +155,11 @@ def kernel_errors(x, gamma, gauss_len, layout=None):
     mu_k, lik_k = softargmax_kernel.softargmax_likelihood(
         x, gamma, gauss_len, layout=layout)
     torch.cuda.synchronize()
-    mu_p, _ = plain.softargmax_2d(x, gamma=gamma, gauss_len=gauss_len)
+    mu_p, _ = plain.softargmax_2d(x.double(), gamma=gamma,
+                                  gauss_len=gauss_len)
     lik_p = plain.max_sigmoid_2x2(x, mu_k)
     torch.cuda.synchronize()
-    return ((mu_k - mu_p).abs().max().item(),
+    return ((mu_k.double() - mu_p).abs().max().item(),
             (lik_k - lik_p).abs().max().item())
 
 
@@ -179,7 +212,7 @@ def candidate_layouts(shape, sms: int):
 
     batch, h, w, joints = shape
     first = sk.launch_shape(batch, h, w, joints, sms)
-    per = sk.joint_group(joints)
+    per = sk.joint_group(joints, h * w)
     threads = {per * max(1, 256 // per)}
     if per == joints and per * w <= sk.MAX_THREADS:
         threads.add(per * w)
@@ -237,8 +270,13 @@ def phase_kernel(cfg, device):
 
     full = (BATCH, *scoremap_size(cfg, HW), NUM_JOINTS)
     crop = (BATCH, *scoremap_size(cfg, CROP_HW), NUM_JOINTS)
+    stride8 = scoremap_size(cfg.replace(output_stride=8), HW)
     odd = [(3, 23, 31, 4), (2, 23, 31, 7), (8, *full[1:3], 1),
-           (4, *crop[1:3], 33), (2, 8, 8, 2000)]
+           (4, *crop[1:3], 33), (2, 8, 8, 2000),
+           # many joints on large maps: the consumer-sum cap
+           (BATCH, *full[1:3], 300), (BATCH, *stride8, 40),
+           # the DGP training steps' maps: step 2's batch + 1, step 1's 2
+           (TRAIN_BATCH + 1, *full[1:]), (2, *full[1:])]
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     rng = np.random.default_rng(SEED)
     worst_mu = worst_lik = 0.0
@@ -253,8 +291,13 @@ def phase_kernel(cfg, device):
                 f"kernel disagrees with plain at {tuple(x.shape)}, gauss_len "
                 f"{gauss_len}, gamma {gamma}, layout {layout}: mu {e_mu}, "
                 f"lik {e_lik}")
+        return e_mu, e_lik
+
+    gen = torch.Generator(device=device).manual_seed(SEED)
 
     def maps(shape):
+        if np.prod(shape) > 50_000_000:     # drawn on the card
+            return torch.randn(shape, generator=gen, device=device) * 3
         return torch.from_numpy(
             (rng.standard_normal(shape) * 3).astype(np.float32)).to(device)
 
@@ -263,13 +306,17 @@ def phase_kernel(cfg, device):
     for shape in (full, crop, *odd):
         x = maps(shape)
         views = [x, offset_view(x)] if shape == odd[1] else [x]
-        for view in views:
-            for gauss_len in (0.0, 1.0, 2.0):
-                for gamma in (1.0, 2.5):
-                    check(view, gamma, gauss_len)
-        checked.append({"shape": list(shape), "storage_offsets": [
-            v.storage_offset() for v in views]})
+        errs = [check(view, gamma, gauss_len) for view in views
+                for gauss_len in (0.0, 1.0, 2.0) for gamma in (1.0, 2.5)]
+        checked.append({
+            "shape": list(shape),
+            "storage_offsets": [v.storage_offset() for v in views],
+            "layout": softargmax_kernel.launch_shape(*shape, sms)._asdict(),
+            "max_abs_err_mu": max(e[0] for e in errs),
+            "max_abs_err_lik": max(e[1] for e in errs)})
         if shape in odd:
+            del x, views
+            torch.cuda.empty_cache()
             continue
         layouts = candidate_layouts(shape, sms)    # the wrapper's one first
         for layout in layouts:
@@ -413,6 +460,16 @@ def phase_full_frame(cfg, device, model_f32, images4, mu_f32, pred_f32):
     return model, launches, mu_bf16
 
 
+def blob_centers(n: int):
+    """(rows, cols) int pixel centers of the moving blob in frames 0..n-1."""
+    import numpy as np
+
+    t = np.arange(n)
+    rows = (HW[0] / 2 + HW[0] / 4 * np.sin(2 * np.pi * t / 400)).astype(int)
+    cols = (HW[1] / 2 + HW[1] / 4 * np.cos(2 * np.pi * t / 400)).astype(int)
+    return rows, cols
+
+
 def moving_blob_frames(n: int):
     """(n, 747, 832, 3) uint8: fixed seeded noise plus a bright disc that
     circles the frame."""
@@ -421,9 +478,7 @@ def moving_blob_frames(n: int):
     rng = np.random.default_rng(SEED + 3)
     base = rng.integers(0, 40, (*HW, 3), dtype=np.uint8)
     frames = np.broadcast_to(base, (n, *HW, 3)).copy()
-    t = np.arange(n)
-    rows = (HW[0] / 2 + HW[0] / 4 * np.sin(2 * np.pi * t / 400)).astype(int)
-    cols = (HW[1] / 2 + HW[1] / 4 * np.cos(2 * np.pi * t / 400)).astype(int)
+    rows, cols = blob_centers(n)
     for k in range(n):
         frames[k, rows[k] - 12:rows[k] + 12, cols[k] - 12:cols[k] + 12] = 255
     return frames
@@ -868,6 +923,397 @@ def phase_int8_tracked_crop(cfg, device, qmodel):
     return out, calls
 
 
+class BlobVideo:
+    """The part of ``data/batcher.py::VideoDataset`` that ``assemble_batch``
+    reads (``get_frames``, ``labels_rc_for_frames``, ``nj``, ``cfg``), in
+    memory: TRAIN_FRAMES moving-blob frames at 747x832, the joints at fixed
+    offsets around the blob, labeled on TRAIN_LABELED."""
+
+    def __init__(self, cfg):
+        import numpy as np
+
+        from deepgraphpose_tpu_torch.data.batcher import xy_to_scoremap
+
+        self.cfg, self.nj = cfg, cfg.num_joints
+        self.frames = moving_blob_frames(TRAIN_FRAMES)
+        rows, cols = blob_centers(TRAIN_FRAMES)
+        offsets = np.array([[0, 0], [-20, 0], [20, 0], [0, -20], [0, 20]],
+                           np.float64)[:self.nj]            # (x, y) pixels
+        self.coords_xy = np.stack([cols, rows], -1)[:, None, :] + offsets
+        self.visible_frames = np.asarray(TRAIN_LABELED, np.int64)
+        self.labels_rc = xy_to_scoremap(self.coords_xy[self.visible_frames],
+                                        cfg.stride)
+
+    def get_frames(self, indices):
+        import numpy as np
+
+        return self.frames[np.asarray(indices)]
+
+    def labels_rc_for_frames(self, frames):
+        """(coords_rc, is_visible), NaN where a frame carries no labels."""
+        import numpy as np
+
+        from deepgraphpose_tpu_torch.data.batcher import xy_to_scoremap
+
+        frames = np.asarray(frames)
+        rc = np.full((len(frames), self.nj, 2), np.nan, np.float32)
+        vis = np.isin(frames, self.visible_frames)
+        rc[vis] = xy_to_scoremap(self.coords_xy[frames[vis]], self.cfg.stride)
+        return rc, vis
+
+
+# step 2's hyperparameters (fit.py::_dgp_cfg_overrides) with a temporal
+# clique; step 1 turns the cliques and the hidden markers off
+STEP2 = dict(ws=1000.0, ws_max=1.2, wt=1.0, wt_max=0.0, wn_visible=5.0,
+             wn_hidden=3.0, gamma=1.0, gauss_len=1.0, lengthscale=1.0,
+             gm2=0, gm3=0)
+STEP1 = dict(STEP2, ws=0.0, wt=0.0, wn_visible=1.0, wn_hidden=0.0)
+LIMBS = ((0, 1), (0, 2), (0, 3), (0, 4))      # a star skeleton of 5 joints
+
+
+def incidence(nj: int):
+    import numpy as np
+
+    S0 = np.zeros((len(LIMBS), nj), np.float32)
+    for k, (a, b) in enumerate(LIMBS):
+        S0[k, a], S0[k, b] = 1.0, -1.0
+    return S0
+
+
+def conditioned_init(cfg, seed: int) -> dict:
+    """The parity steps' init: init_model's LeCun kernels with the root
+    conv divided by 100 (0-255 pixels give O(1) activations), batch-norm
+    scale and var uniform in [0.5, 1.5], its bias and mean N(0, 0.1), as
+    the JAX comparison tests draw their variables
+    (tests/test_torch_train.py::random_variables). With frozen batch-norm
+    it brings a float32 step's momentum traces within 1e-3 of the float64
+    step's (PERF.md); init_model's identity batch-norm on 0-255 inputs
+    leaves them several times farther."""
+    import torch
+
+    from deepgraphpose_tpu_torch.models.pose_model import init_model
+
+    gen = torch.Generator().manual_seed(seed)
+    state = init_model(cfg, gen, device="cpu").state_dict()
+    for key, value in state.items():
+        name = key.rsplit(".", 1)[1]
+        if key == "backbone.conv1.weight":
+            value /= 100.0
+        elif name in ("scale", "var"):
+            value.copy_(torch.rand(value.shape, generator=gen) + 0.5)
+        elif name in ("bias", "mean") and "bn" in key:
+            value.copy_(torch.randn(value.shape, generator=gen) * 0.1)
+    return state
+
+
+def one_step(model, params, images, batch, bn_train: bool, lr: float):
+    """One step-2 update of ``model`` in its own dtype and device: (loss
+    terms, parameters and buffers, momentum traces), as float64 on the
+    CPU, and the decode launches it made."""
+    import torch
+
+    from deepgraphpose_tpu_torch.ops.kernels import softargmax_kernel
+    from deepgraphpose_tpu_torch.train import steps
+
+    dtype = next(model.parameters()).dtype
+    opt = steps.make_optimizer(model.parameters(), lr, clip_norm=10.0)
+    step = steps.make_dgp_train_step(model, params, opt, bn_train=bn_train)
+    before = softargmax_kernel.launches
+    loss = step(images, {k: v.to(dtype) for k, v in batch.items()})
+    if images.is_cuda or next(model.parameters()).is_cuda:
+        torch.cuda.synchronize()
+    launches = softargmax_kernel.launches - before
+
+    def cpu64(t):
+        return t.detach().to("cpu", torch.float64)
+
+    return ({k: v.item() for k, v in loss.items()},
+            {k: cpu64(v) for k, v in model.state_dict().items()},
+            {k: cpu64(opt.state[p]["momentum_buffer"])
+             for k, p in model.named_parameters()}, launches)
+
+
+def step_errors(run, ref) -> dict:
+    """A step's distance from the reference step: the largest loss-term
+    error relative to the term, the largest parameter or buffer error, and
+    the largest trace error relative to its tensor's largest value."""
+    loss, state, trace, _ = run
+    return {"loss_rel": max(abs(loss[k] - v) / abs(v)
+                            for k, v in ref[0].items() if v),
+            "param_abs": max((state[k] - v).abs().max().item()
+                             for k, v in ref[1].items()),
+            "trace_rel": max((trace[k] - v).abs().max().item()
+                             / v.abs().max().item()
+                             for k, v in ref[2].items())}
+
+
+# one DGP step on the card against the CPU from one init and batch. In
+# float64 on both (the objective in float32, as the heads emit it) every
+# parameter and buffer within F64_PARAM_ABS and every momentum trace within
+# F64_TRACE_REL of its tensor's largest value; in float32 the loss terms
+# within F32_LOSS_REL and, with frozen batch-norm, the card's step against
+# the CPU's float64 step within F32_PARAM_ABS and F32_TRACE_REL. With
+# trainable batch-norm a float32 gradient of a random ResNet-50 is chaotic:
+# the CPU's own float32 step strays from its float64 step by a tenth or
+# more of a tensor's largest trace (train_parity's f32_cpu_vs_f64; the
+# readings are in PERF.md), so that mode's float32 step is held by its
+# loss terms, and its gradients by the float64 step.
+F64_PARAM_ABS, F64_TRACE_REL = 1e-5, 1e-4
+F32_LOSS_REL, F32_PARAM_ABS, F32_TRACE_REL = 1e-5, 1e-5, 2e-3
+
+
+def step_parity(make_model, params, images, batch, bn_train: bool,
+                lr: float, device) -> tuple[dict, bool]:
+    """One step of ``make_model(dtype, device)`` on the CPU and on
+    ``device`` in float64 and float32, TF32 off: (the distances above,
+    whether they hold and the card's objective launched the decode kernel
+    once a step and the CPU's never)."""
+    import numpy as np
+    import torch
+
+    matmul_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                        deterministic=True, allow_tf32=False):
+            runs = [one_step(make_model(dtype, dev), params, images, batch,
+                             bn_train, lr)
+                    for dtype in (torch.float64, torch.float32)
+                    for dev in ("cpu", device)]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = matmul_tf32
+    cpu64, card64, cpu32, card32 = runs
+    errors = {"f64_card_vs_cpu": step_errors(card64, cpu64),
+              "f32_card_vs_cpu_loss_rel": step_errors(card32, cpu32)[
+                  "loss_rel"],
+              "f32_card_vs_f64": step_errors(card32, cpu64),
+              "f32_cpu_vs_f64": step_errors(cpu32, cpu64),
+              "decode_launches": [run[3] for run in runs],
+              "losses": card32[0]}
+    f32 = errors["f32_card_vs_f64"]
+    ok = (errors["f64_card_vs_cpu"]["param_abs"] <= F64_PARAM_ABS
+          and errors["f64_card_vs_cpu"]["trace_rel"] <= F64_TRACE_REL
+          and errors["f32_card_vs_cpu_loss_rel"] <= F32_LOSS_REL
+          and (bn_train or (f32["param_abs"] <= F32_PARAM_ABS
+                            and f32["trace_rel"] <= F32_TRACE_REL))
+          and errors["decode_launches"] == [0, 1, 0, 1]
+          and all(np.isfinite(v) for run in runs for v in run[0].values()))
+    return errors, ok
+
+
+def phase_train_parity(device) -> dict:
+    """One step-2 update of ResNet-50 (3 frames of 128x160, a limb clique,
+    wt > 0, seeded flow) from one ``conditioned_init`` and batch, frozen
+    and trainable batch-norm, held by ``step_parity``: the card against
+    the CPU in float64 and in float32, the decode kernel in the card's
+    objective. Then the gradient of mu through ``softargmax_2d_cuda``
+    against the plain version's on step 2's (11, 94, 104, 5) maps."""
+    import numpy as np
+    import torch
+
+    from deepgraphpose_tpu_torch.core.config import PoseConfig
+    from deepgraphpose_tpu_torch.models.pose_model import (PoseModel,
+                                                           scoremap_size)
+    from deepgraphpose_tpu_torch.ops import softargmax as plain
+    from deepgraphpose_tpu_torch.ops.dgp_objective import loss_params
+    from deepgraphpose_tpu_torch.ops.kernels import softargmax_kernel
+
+    cfg = PoseConfig(net_type="resnet_50", num_joints=NUM_JOINTS, **STEP2)
+    h, w = scoremap_size(cfg, TRAIN_PARITY_HW)
+    t = TRAIN_PARITY_FRAMES
+    rng = np.random.default_rng(SEED + 8)
+    images = torch.from_numpy(rng.integers(0, 256, (t, *TRAIN_PARITY_HW, 3),
+                                           dtype=np.uint8))
+    vis = np.zeros((t, NUM_JOINTS), np.float32)
+    vis[0] = 1.0
+    targets = rng.uniform(2, min(h, w) - 3, (t, NUM_JOINTS, 2))
+    batch = {
+        "targets": torch.from_numpy((targets * vis[..., None]).astype(
+            np.float32)),
+        "visible_mask": torch.from_numpy(vis.ravel()),
+        "hidden_mask": torch.from_numpy(1.0 - vis.ravel()),
+        "frame_mask": torch.ones(t), "wt_batch": torch.full((t - 1,), 1.0),
+        "pair_mask": torch.ones(t - 1),
+        "flow": torch.from_numpy(rng.uniform(0.1, 3.0, (
+            t - 1, *TRAIN_PARITY_HW)).astype(np.float32))}
+    params = loss_params(cfg, incidence(NUM_JOINTS),
+                         [targets[:1].astype(np.float32)], 4, 20)
+    init = conditioned_init(cfg, SEED + 9)
+
+    def model(dtype, dev):
+        m = PoseModel(cfg, dtype=dtype).to(dtype)
+        m.load_state_dict(init)
+        return m.to(dev, memory_format=torch.channels_last)
+
+    out = {"phase": "train_parity", "model": "resnet_50",
+           "hw": list(TRAIN_PARITY_HW), "frames": t, "scoremap": [h, w],
+           "tf32": False, "lr": TRAIN_LR, "modes": []}
+    ok = True
+    for bn_train in (False, True):
+        errors, good = step_parity(model, params, images, batch, bn_train,
+                                   TRAIN_LR, device)
+        out["modes"].append({"bn_train": bn_train, **errors})
+        ok = ok and good
+    # the decode's gradient at step 2's maps: kernel forward, plain backward
+    full = (TRAIN_BATCH + 1, *scoremap_size(cfg, HW), NUM_JOINTS)
+    x = torch.randn(full, generator=torch.Generator(device=device).manual_seed(
+        SEED + 10), device=device) * 3
+    wts = torch.randn(full[0], NUM_JOINTS, 2, device=device)
+    s1 = x.clone().requires_grad_(True)
+    (softargmax_kernel.softargmax_2d_cuda(s1, cfg.gamma, cfg.gauss_len)
+     * wts).sum().backward()
+    s2 = x.clone().requires_grad_(True)
+    (plain.softargmax_2d(s2, gamma=cfg.gamma, gauss_len=cfg.gauss_len)[0]
+     * wts).sum().backward()
+    grad_rel = ((s1.grad - s2.grad).abs().max()
+                / s2.grad.abs().max()).item()
+    out["decode_grad"] = {"shape": list(full), "rel_err": grad_rel}
+    emit(out)
+    if not ok or grad_rel > 1e-6:
+        raise AssertionError(f"train step: card against CPU out of "
+                             f"tolerance: {out}")
+    return out
+
+
+def timed_steps(step, inputs, n_frames: int, decode_launches: int) -> dict:
+    """TRAIN_WARMUP then TRAIN_STEPS calls of ``step(*inputs())``, one
+    repeated host batch copied to the card each step: steps/s, frames/s,
+    peak memory, every loss dict, and every kernel's launches in the timed
+    steps, counted from 0 just before them. Fails unless the decode kernel
+    launched ``decode_launches`` times a step and no GEMM kernel did."""
+    import torch
+
+    losses = [step(*inputs()) for _ in range(TRAIN_WARMUP)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    losses += [step(*inputs()) for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = read_launches()
+    want = {name: 0 for name in launches}
+    want["softargmax_likelihood"] = decode_launches * TRAIN_STEPS
+    if launches != want:
+        raise AssertionError(f"{launches} kernel launches in {TRAIN_STEPS} "
+                             f"steps, expected {want}")
+    return {"steps_per_s": TRAIN_STEPS / dt,
+            "frames_per_s": TRAIN_STEPS * n_frames / dt,
+            "ms_per_step": 1e3 * dt / TRAIN_STEPS,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches": launches,
+            "losses": [{k: v.item() for k, v in d.items()} for d in losses]}
+
+
+def phase_train(device):
+    """Steps 0, 1 and 2 of the DGP chain on the card, host-fed, at the full
+    747x832 frame: ResNet-50 in float32 with trainable batch-norm (the
+    from-scratch mode fit_dlc and fit_dgp take without a warm start), one
+    model through the three steps, batches from ``assemble_batch`` over
+    ``BlobVideo``. Returns (the three lines, the step-2 step and inputs)."""
+    import numpy as np
+    import torch
+
+    from deepgraphpose_tpu_torch.core.config import PoseConfig
+    from deepgraphpose_tpu_torch.data.batcher import assemble_batch
+    from deepgraphpose_tpu_torch.data.prefetch import host_to_device
+    from deepgraphpose_tpu_torch.models.pose_model import (init_model,
+                                                           scoremap_size)
+    from deepgraphpose_tpu_torch.ops.dgp_objective import loss_params
+    from deepgraphpose_tpu_torch.ops.kernels import softargmax_kernel
+    from deepgraphpose_tpu_torch.train import steps
+
+    base = PoseConfig(net_type="resnet_50", num_joints=NUM_JOINTS,
+                      compute_dtype="float32")
+    video = BlobVideo(base)
+    model = init_model(base, torch.Generator().manual_seed(SEED + 11),
+                       torch.float32, device)
+    tf32 = {"cudnn": torch.backends.cudnn.allow_tf32,
+            "matmul": torch.backends.cuda.matmul.allow_tf32}
+    lines = []
+
+    def report(name, timing, key, extra):
+        first, last = timing["losses"][0][key], timing["losses"][-1][key]
+        line = {"phase": name, "model": "resnet_50", "hw": list(HW),
+                "dtype": "float32", "tf32": tf32, "bn_train": True,
+                "loss_key": key, "first_loss": first, "last_loss": last,
+                **{k: v for k, v in timing.items() if k != "losses"},
+                **extra}
+        emit(line)
+        finite = all(np.isfinite(v) for d in timing["losses"]
+                     for v in d.values())
+        if not (finite and last < first):
+            raise AssertionError(f"{name}: losses not finite and falling: "
+                                 f"{timing['losses']}")
+        lines.append(line)
+
+    # step 0: supervised DLC, batch 1
+    frame = [int(TRAIN_LABELED[0])]
+    opt = steps.make_optimizer(model.parameters(),
+                               steps.piecewise_lr(base.multi_step))
+    step0 = steps.make_dlc_train_step(model, base, opt, bn_train=True)
+    coords = torch.from_numpy(video.coords_xy[frame].astype(np.float32))
+    present = torch.ones(1, NUM_JOINTS, dtype=torch.bool)
+    timing = timed_steps(step0, lambda: (
+        host_to_device(video.get_frames(frame), device), coords, present), 1,
+        decode_launches=0)
+    report("train_step0", timing, "total_loss", {"batch": 1})
+
+    # steps 1 and 2: DGP
+    S0 = incidence(NUM_JOINTS)
+    n_vis = len(TRAIN_LABELED)
+    step2_lines = None
+    for name, over, pad_to, frames in (
+            ("train_step1", STEP1, 2, [int(TRAIN_LABELED[1])]),
+            ("train_step2", STEP2, TRAIN_BATCH + 1,
+             list(range(TRAIN_WINDOW, TRAIN_WINDOW + TRAIN_BATCH)))):
+        cfg = base.replace(**over)
+        vis = [f for f in frames if f in TRAIN_LABELED]
+        hid = [f for f in frames if f not in TRAIN_LABELED]
+        flow_from = "none (wt = 0)"
+        if cfg.wt > 0:
+            try:
+                import cv2  # noqa: F401
+
+                flow_from = "flow_magnitude_sequence (OpenCV Farneback)"
+            except ImportError:
+                flow_from = "seeded numpy field (no OpenCV on this host)"
+        t0 = time.perf_counter()
+        batch = assemble_batch(video, vis, hid, pad_to=pad_to, wt=cfg.wt,
+                               compute_flow=flow_from.startswith("flow_"))
+        if flow_from.startswith("seeded"):
+            batch.flow = np.random.default_rng(SEED + 12).uniform(
+                0.0, 3.0, batch.flow.shape).astype(np.float32)
+        assemble_s = time.perf_counter() - t0
+        params = loss_params(cfg, S0, [video.labels_rc], n_vis,
+                             TRAIN_FRAMES - n_vis)
+        opt = steps.make_optimizer(model.parameters(), TRAIN_LR,
+                                   clip_norm=10.0)
+        visible_only = name == "train_step1"
+        step = steps.make_dgp_train_step(model, params, opt,
+                                         visible_only=visible_only,
+                                         bn_train=True)
+        zeros = (None if cfg.wt > 0 else
+                 torch.zeros(batch.flow.shape, device=device))
+
+        def inputs(batch=batch, zeros=zeros):
+            return (host_to_device(batch.images, device),
+                    batch.as_torch(flow=zeros, device=device))
+
+        timing = timed_steps(step, inputs, len(frames), decode_launches=1)
+        layout = softargmax_kernel.launch_shape(
+            pad_to, *scoremap_size(base, HW), NUM_JOINTS)
+        report(name, timing,
+               "total_loss_visible" if visible_only else "total_loss",
+               {"pad_to": pad_to, "frames": len(frames),
+                "visible_frames": len(vis), "limbs": params.n_limbs,
+                "wt": cfg.wt, "flow": flow_from, "assemble_s": assemble_s,
+                "decode_layout": layout._asdict()})
+        if name == "train_step2":
+            step2_lines = (step, inputs)
+    return lines, step2_lines
+
+
 def kernel_class(name: str) -> str:
     """Sort a device kernel's name into decode, int8_gemm (the port's int8
     GEMM, matched before the library GEMMs), convolution, elementwise,
@@ -944,10 +1390,12 @@ def profile_path(name: str, step, batches: int) -> dict:
     }
 
 
-def phase_profile(cfg, device, model, qmodel, batches: int = 3) -> None:
+def phase_profile(cfg, device, model, qmodel, train_step2,
+                  batches: int = 3) -> None:
     """Where the device time goes: full-frame batches and tracked-crop
-    steps (the crop step alone, at a fixed center) of the bf16 model, and
-    full-frame batches of the int8 model."""
+    steps (the crop step alone, at a fixed center) of the bf16 model,
+    full-frame batches of the int8 model, and DGP step-2 train steps
+    (``train_step2``: the step and its host-fed inputs)."""
     import torch
 
     from deepgraphpose_tpu_torch.infer.dynamic import make_crop_infer_fn
@@ -960,9 +1408,11 @@ def phase_profile(cfg, device, model, qmodel, batches: int = 3) -> None:
     crop = make_crop_infer_fn(model, cfg, CROP_HW)
     center = (HW[0] / 2, HW[1] / 2)
     full_int8 = make_infer_fn(qmodel, cfg)
+    train, inputs = train_step2
     for name, step in (("full_frame", lambda: full(frames)),
                        ("tracked_crop", lambda: crop(frames, center)),
-                       ("int8_full_frame", lambda: full_int8(frames))):
+                       ("int8_full_frame", lambda: full_int8(frames)),
+                       ("train_step2", lambda: train(*inputs()))):
         emit(profile_path(name, step, batches))
 
 
@@ -1022,9 +1472,13 @@ def main() -> int:
     int8_paths["int8_residual_full_frame"] = path
     checks += calls
     del rmodel, model_f32, pred_f32
-    phase_profile(cfg, device, model, qmodel)
+    torch.cuda.empty_cache()
+    phase_train_parity(device)
+    train_lines, train_step2 = phase_train(device)
+    phase_profile(cfg, device, model, qmodel, train_step2)
 
     by_path = {name: path["launches"] for name, path in int8_paths.items()}
+    by_path.update({line["phase"]: line["launches"] for line in train_lines})
     decode_by_path = {"full_frame": full_launches,
                       "tracked_crop": crop_launches,
                       **{name: counts["softargmax_likelihood"]

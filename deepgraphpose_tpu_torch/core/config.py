@@ -214,6 +214,20 @@ class ProjectConfig:
             yaml.safe_dump(self.to_dict(), f, default_flow_style=False,
                            sort_keys=False)
 
+    def skeleton_incidence(self) -> "np.ndarray":
+        """Limb incidence matrix S0 (n_limbs x n_joints), +1/-1 per edge.
+
+        ref: src/deepgraphpose/models/fitdgp.py:607-617.
+        """
+        import numpy as np
+
+        skeleton = self.skeleton or []
+        S0 = np.zeros((len(skeleton), len(self.bodyparts)), dtype=np.float32)
+        for s, (a, b) in enumerate(skeleton):
+            S0[s, self.bodyparts.index(a)] = 1.0
+            S0[s, self.bodyparts.index(b)] = -1.0
+        return S0
+
 
 def read_config(path: str | Path) -> ProjectConfig:
     return ProjectConfig.from_yaml(path)

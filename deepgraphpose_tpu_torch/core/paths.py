@@ -1,7 +1,8 @@
 """DLC project filestructure layout (the north-star compatibility contract).
 
 ref: deeplabcut/utils/auxiliaryfunctions.py:304-328 (GetModelFolder,
-GetTrainingSetFolder) and demo/run_dgp_demo.py:269-283.
+GetTrainingSetFolder, GetDataandMetaDataFilenames) and
+demo/run_dgp_demo.py:269-283 (videos_dgp / videos_pred).
 """
 
 from __future__ import annotations
@@ -22,10 +23,40 @@ def model_folder(train_fraction: float, shuffle: int, cfg: ProjectConfig) -> Pat
     )
 
 
+def training_set_folder(cfg: ProjectConfig) -> Path:
+    """training-datasets/iteration-i/UnaugmentedDataSet_{Task}{date}."""
+    return Path("training-datasets") / iteration_dir(cfg) / (
+        f"UnaugmentedDataSet_{cfg.Task}{cfg.date}"
+    )
+
+
+def data_and_metadata_filenames(
+    trainingsetfolder: Path, train_fraction: float, shuffle: int,
+    cfg: ProjectConfig,
+) -> tuple[str, str]:
+    """(.mat dataset, Documentation pickle) relative names.
+
+    ref: auxiliaryfunctions.py:318-328.
+    """
+    stem = f"{cfg.Task}_{cfg.scorer}{int(100 * train_fraction)}shuffle{shuffle}"
+    datafn = str(trainingsetfolder / f"{stem}.mat")
+    metafn = str(
+        trainingsetfolder
+        / f"Documentation_data-{cfg.Task}_{int(100 * train_fraction)}shuffle{shuffle}.pickle"
+    )
+    return datafn, metafn
+
+
 def train_dir(project_path: str | Path, cfg: ProjectConfig,
               shuffle: int = 1, trainingsetindex: int = 0) -> Path:
     frac = cfg.TrainingFraction[trainingsetindex]
     return Path(project_path) / model_folder(frac, shuffle, cfg) / "train"
+
+
+def test_dir(project_path: str | Path, cfg: ProjectConfig,
+             shuffle: int = 1, trainingsetindex: int = 0) -> Path:
+    frac = cfg.TrainingFraction[trainingsetindex]
+    return Path(project_path) / model_folder(frac, shuffle, cfg) / "test"
 
 
 def snapshot_name(step: int, iteration: int | str, debug: str = "") -> str:
@@ -37,8 +68,35 @@ def final_snapshot_name(step: int, debug: str = "") -> str:
     return f"snapshot-step{step}{debug}-final--0"
 
 
+def labeled_data_dir(project_path: str | Path, video_name: str) -> Path:
+    return Path(project_path) / "labeled-data" / video_name
+
+
+def collected_data_file(project_path: str | Path, video_name: str,
+                        scorer: str, ext: str = "csv") -> Path:
+    return labeled_data_dir(project_path, video_name) / f"CollectedData_{scorer}.{ext}"
+
+
+def videos_dgp_dir(project_path: str | Path) -> Path:
+    return Path(project_path) / "videos_dgp"
+
+
 def videos_pred_dir(project_path: str | Path) -> Path:
     return Path(project_path) / "videos_pred"
+
+
+VIDEO_EXTS = (".avi", ".mp4", ".mov", ".mkv")
+
+
+def list_videos(directory: str | Path) -> list[str]:
+    """All video files in a directory (ref: fitdgp.py:597-604)."""
+    d = Path(directory)
+    if not d.exists():
+        return []
+    return sorted(
+        str(p) for p in d.iterdir()
+        if p.is_file() and p.suffix.lower() in VIDEO_EXTS
+    )
 
 
 def resolve_project(dlcpath: str | Path, shuffle: int = 1,

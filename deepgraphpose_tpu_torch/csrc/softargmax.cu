@@ -59,8 +59,9 @@
 //   copied body. Where R is a multiple of W (the column kernel) a
 //   consumer's pixel column j never changes: it keeps B(j), Bc(j) in
 //   registers and sums e*A(i) and e*Ar(i) only (sum e*A*B = B * sum e*A),
-//   one 8-byte shared load a logit. The exp is an ex2.approx of a
-//   pre-scaled logit.
+//   one 8-byte shared load a logit. The exp is an ex2.approx of
+//   fma(x, scale, -max): one rounding, so the weights of the logits near
+//   the max keep their precision.
 // * Merge. Per-consumer partials (max, S0, Sr, Sc) merge inside the CTA
 //   with warp shuffles. The other ranks then write their per-joint
 //   partials into rank 0's shared memory through distributed shared
@@ -275,6 +276,7 @@ __global__ void __launch_bounds__(kMaxThreads, 2) softargmax_likelihood_kernel(
     bar_wait(wbar, 0);
     const float2 bb = kColumn ? sBB[j] : make_float2(0.f, 0.f);
     float m = -INFINITY, s0 = 0.f, sr = 0.f, sc = 0.f;
+    const float past = scale > 0.f ? -INFINITY : INFINITY;
 
     for (int n = 0; n < nchunks; ++n) {
       const int s = n % stages;
@@ -288,24 +290,24 @@ __global__ void __launch_bounds__(kMaxThreads, 2) softargmax_likelihood_kernel(
         // steps of this consumer inside the chunk, and whether they all
         // lie in the copied body (then no test a logit)
         const int nv = min(kSteps, max(0, (q1 - q + R - 1) / R));
-        float v[kSteps];
+        float v[kSteps];  // raw logits; past the chunk, ones that scale to -inf
         if (nv == kSteps && l0 >= ch.head &&
             l0 + (kSteps - 1) * RC < ch.head + ch.body) {
 #pragma unroll
-          for (int u = 0; u < kSteps; ++u) v[u] = buf[l0 + u * RC] * scale;
+          for (int u = 0; u < kSteps; ++u) v[u] = buf[l0 + u * RC];
         } else {
 #pragma unroll
           for (int u = 0; u < kSteps; ++u) {
             const int l = l0 + u * RC;
-            v[u] = u >= nv ? -INFINITY
+            v[u] = u >= nv ? past
                    : (l >= ch.head && l < ch.head + ch.body)
-                       ? buf[l] * scale
-                       : __ldg(x + ch.ga + l) * scale;
+                       ? buf[l]
+                       : __ldg(x + ch.ga + l);
           }
         }
-        float mc = v[0];
+        float mc = v[0] * scale;
 #pragma unroll
-        for (int u = 1; u < kSteps; ++u) mc = fmaxf(mc, v[u]);
+        for (int u = 1; u < kSteps; ++u) mc = fmaxf(mc, v[u] * scale);
         if (mc > m) {
           const float f = ex2(m - mc);  // 0 on the first chunk
           s0 *= f;
@@ -313,20 +315,27 @@ __global__ void __launch_bounds__(kMaxThreads, 2) softargmax_likelihood_kernel(
           sc *= f;
           m = mc;
         }
+        // the chunk's sums start from 0 and join the running sums once:
+        // a consumer's float32 rounding grows with sqrt(steps) +
+        // sqrt(chunks), not sqrt(steps * chunks)
+        float t0 = 0.f, tr = 0.f, tc = 0.f;
 #pragma unroll
         for (int u = 0; u < kSteps; ++u) {
           if (u < nv) {
-            const float e = ex2(v[u] - m);
+            // one rounding of scale * x - m: near the max, where the
+            // weight is, the exponent keeps its low bits (a rounded
+            // scale * x below 64 is off by up to 2^-19)
+            const float e = ex2(fmaf(v[u], scale, -m));
             const float2 aa = sAA[i];  // (A(i), Ar(i))
             if (kColumn) {
-              s0 = fmaf(e, aa.x, s0);
-              sr = fmaf(e, aa.y, sr);
+              t0 = fmaf(e, aa.x, t0);
+              tr = fmaf(e, aa.y, tr);
             } else {
               const float2 bj = sBB[j];
               const float ea = e * aa.x;
-              s0 = fmaf(ea, bj.x, s0);
-              sc = fmaf(ea, bj.y, sc);
-              sr = fmaf(e * aa.y, bj.x, sr);
+              t0 = fmaf(ea, bj.x, t0);
+              tc = fmaf(ea, bj.y, tc);
+              tr = fmaf(e * aa.y, bj.x, tr);
             }
           }
           i += di;
@@ -338,6 +347,9 @@ __global__ void __launch_bounds__(kMaxThreads, 2) softargmax_likelihood_kernel(
             }
           }
         }
+        s0 += t0;
+        sr += tr;
+        sc += tc;
         q += P;
       }
       __syncwarp(wmask);

@@ -1,8 +1,17 @@
 """Video reading on OpenCV (RGB uint8 frames).
 
-The port's own copy of ``deepgraphpose_tpu/data/video.py:30-110``. ``cv2``
-is imported when a reader opens, so the module imports on a host without
-OpenCV.
+The port's own copy of ``deepgraphpose_tpu/data/video.py:30-186``:
+
+* :class:`VideoReader`: sequential and random access;
+* :class:`FrameCache`: the training frames decoded once into an in-memory
+  JPEG cache, so the train loop never seeks the container again;
+* :func:`motion_energy`: mean |frame_t - frame_{t-1}| per frame in one
+  streaming pass (ref: dataset.py:29-43).
+
+``cv2`` is imported where a reader opens or a frame is coded, so the module
+imports on a host without OpenCV. The cache decodes with OpenCV only; the
+reference's optional libjpeg batch decoder (``native/framecache.cc``) has
+no copy here.
 """
 
 from __future__ import annotations
@@ -47,6 +56,15 @@ class VideoReader:
             self._pos = index + 1
         return cv2.cvtColor(frame, cv2.COLOR_BGR2RGB)
 
+    def read_frames(self, indices) -> np.ndarray:
+        """Batch random-access read; sorts internally to minimize seeks."""
+        indices = np.asarray(indices)
+        order = np.argsort(indices)
+        out = [None] * len(indices)
+        for k in order:
+            out[k] = self.read_frame(int(indices[k]))
+        return np.stack(out)
+
     def iter_frames(self, start: int = 0, stop: int | None = None):
         """Sequential iteration (fast path, no seeks)."""
         cv2 = self._cv2
@@ -85,3 +103,70 @@ def iter_frame_batches(reader: VideoReader, batch_size: int,
             buf = []
     if buf:
         yield start, np.stack(buf)
+
+
+class FrameCache:
+    """Decode-once JPEG cache for a fixed frame subset."""
+
+    def __init__(self, reader: VideoReader, indices, quality: int = 95):
+        import cv2
+
+        self.reader = reader
+        self._jpegs: dict[int, bytes] = {}
+        want = sorted(set(int(i) for i in indices))
+        want_set = set(want)
+        self.nbytes = 0
+        if not want:
+            return
+        # one sequential pass over [min, max]
+        enc = [int(cv2.IMWRITE_JPEG_QUALITY), quality]
+        for i, frame in reader.iter_frames(want[0], want[-1] + 1):
+            if i in want_set:
+                ok, buf = cv2.imencode(".jpg", frame[..., ::-1], enc)
+                if ok:
+                    self._jpegs[i] = buf.tobytes()
+        self.nbytes = sum(len(b) for b in self._jpegs.values())
+
+    def __contains__(self, index: int) -> bool:
+        return int(index) in self._jpegs
+
+    def get(self, index: int) -> np.ndarray:
+        import cv2
+
+        buf = self._jpegs.get(int(index))
+        if buf is None:
+            return self.reader.read_frame(int(index))
+        img = cv2.imdecode(np.frombuffer(buf, np.uint8), cv2.IMREAD_COLOR)
+        return cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
+
+    def get_batch(self, indices) -> np.ndarray:
+        return np.stack([self.get(int(i)) for i in indices])
+
+
+def motion_energy(path: str | Path, resize_to: int | None = 256) -> np.ndarray:
+    """Per-frame mean |frame diff| in one streaming pass.
+
+    ref: dataset.py:29-43 (calculate_motion_energy). Downscaling before the
+    diff changes only the ranking granularity; ``resize_to=None`` keeps the
+    full frames.
+    """
+    import cv2
+
+    reader = VideoReader(path)
+    me = np.zeros(max(reader.n_frames, 1), dtype=np.float64)
+    prev = None
+    last = 0
+    for i, frame in reader.iter_frames():
+        if resize_to is not None and max(frame.shape[:2]) > resize_to:
+            s = resize_to / max(frame.shape[:2])
+            frame = cv2.resize(frame, (max(1, int(frame.shape[1] * s)),
+                                       max(1, int(frame.shape[0] * s))))
+        f = frame.astype(np.float32)
+        if prev is not None:
+            if i >= len(me):
+                me = np.resize(me, i + 1)
+            me[i] = float(np.mean(np.abs(f - prev)))
+        prev = f
+        last = i
+    reader.close()
+    return me[:last + 1]

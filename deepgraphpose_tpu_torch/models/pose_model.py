@@ -59,12 +59,15 @@ class PoseModel(nn.Module):
                                                            self.dtype)
             self.head_keys.append("part_pred_interm")
 
-    def forward(self, images: torch.Tensor, heads=None) -> dict:
+    def forward(self, images: torch.Tensor, heads=None,
+                train: bool = False) -> dict:
         """images: (T, H, W, 3) RGB in [0, 255], any real or uint8 dtype.
 
         ``heads`` names the outputs to compute (default: all configured).
         Inference asks for ``("part_pred",)`` only, so the locref head is
-        never run there.
+        never run there. ``train=True`` runs batch-norm on batch statistics
+        and updates its moving stats (``FrozenBatchNorm``); the default is
+        inference.
         """
         want = self.head_keys if heads is None else list(heads)
         unknown = set(want) - set(self.head_keys)
@@ -73,7 +76,7 @@ class PoseModel(nn.Module):
                              f"configured: {self.head_keys}")
         x = (images.to(torch.float32) - self.mean_pixel).to(self.dtype)
         x = x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
-        features, end_points = self.backbone(x)
+        features, end_points = self.backbone(x, train)
         out = {}
         if "part_pred" in want:
             out["part_pred"] = _nhwc_f32(self.part_pred(features))

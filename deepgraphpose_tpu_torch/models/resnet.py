@@ -50,11 +50,20 @@ def _conv(cin: int, cout: int, k: int, stride: int = 1, rate: int = 1,
 
 
 class FrozenBatchNorm(nn.Module):
-    """Batch-norm in inference mode: a per-channel affine transform.
+    """Batch-norm as the flax module: inference by default, batch stats
+    with ``train=True``.
 
-    ``scale``/``bias`` are parameters and ``mean``/``var`` buffers, named
-    as in the flax module. The train mode waits for the training slice.
+    ``scale``/``bias`` are parameters that the optimizer trains, and
+    ``mean``/``var`` buffers, named as in the flax module. In inference
+    (the reference's only mode, ref: pose_net.py:52) it is a per-channel
+    affine transform by the moving stats. ``train=True`` normalizes by the
+    batch mean and the biased batch variance (over N, H, W, in float32, or
+    float64 for float64 input) and updates the moving stats as
+    ``0.99 * stat + 0.01 * batch_stat`` (flax momentum 0.99), the
+    from-scratch mode of ``deepgraphpose_tpu/models/resnet.py:52-89``.
     """
+
+    momentum = 0.99
 
     def __init__(self, features: int, epsilon: float = 1e-5):
         super().__init__()
@@ -64,11 +73,21 @@ class FrozenBatchNorm(nn.Module):
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        if train:
+            xf = x.to(torch.promote_types(x.dtype, torch.float32))
+            use_mean = xf.mean(dim=(0, 2, 3))
+            use_var = xf.var(dim=(0, 2, 3), unbiased=False)
+            m = self.momentum
+            with torch.no_grad():
+                self.mean.copy_(m * self.mean + (1.0 - m) * use_mean)
+                self.var.copy_(m * self.var + (1.0 - m) * use_var)
+        else:
+            use_mean, use_var = self.mean, self.var
         # inv in float32, then x * inv + (bias - mean * inv) in x's dtype
         # (ref: deepgraphpose_tpu models/resnet.py:93-94)
-        inv = self.scale / torch.sqrt(self.var + self.epsilon)
-        shift = self.bias - self.mean * inv
+        inv = self.scale / torch.sqrt(use_var + self.epsilon)
+        shift = self.bias - use_mean * inv
         return x * inv.to(x.dtype)[:, None, None] + shift.to(x.dtype)[:, None, None]
 
 
@@ -91,17 +110,17 @@ class BottleneckV1(nn.Module):
         self.conv3 = _conv(depth_bottleneck, depth, 1, dtype=dtype)
         self.bn3 = FrozenBatchNorm(depth)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         if self.project:
-            shortcut = self.shortcut_bn(self.shortcut_conv(x))
+            shortcut = self.shortcut_bn(self.shortcut_conv(x), train)
         elif self.stride != 1:
             # slim subsample(): 1x1 max-pool with stride
             shortcut = x[:, :, ::self.stride, ::self.stride]
         else:
             shortcut = x
-        y = F.relu(self.bn1(self.conv1(x)))
-        y = F.relu(self.bn2(self.conv2(y)))
-        y = self.bn3(self.conv3(y))
+        y = F.relu(self.bn1(self.conv1(x), train))
+        y = F.relu(self.bn2(self.conv2(y), train))
+        y = self.bn3(self.conv3(y), train)
         return F.relu(shortcut + y)
 
 
@@ -140,8 +159,9 @@ def unit_plan(units: Sequence[int], output_stride: int):
 class ResNetV1(nn.Module):
     """ResNet-v1 trunk with output_stride control (no global pool / fc).
 
-    forward(x NCHW) -> (features, end_points) with ``end_points["blockN"]``
-    the output of block N.
+    forward(x NCHW, train) -> (features, end_points) with
+    ``end_points["blockN"]`` the output of block N; ``train`` puts every
+    batch-norm in its train mode.
     """
 
     def __init__(self, units: Sequence[int] = (3, 4, 6, 3),
@@ -159,15 +179,15 @@ class ResNetV1(nn.Module):
             in_depth = depth
         self.out_depth = in_depth
 
-    def forward(self, x: torch.Tensor):
+    def forward(self, x: torch.Tensor, train: bool = False):
         x = x.to(self.dtype)
         # slim root: conv2d_same(64, 7, stride=2) -> pad (3,3) + VALID,
         # then a VALID 3x3/2 max-pool
-        x = F.relu(self.bn1(self.conv1(x)))
+        x = F.relu(self.bn1(self.conv1(x), train))
         x = F.max_pool2d(x, 3, 2)
         end_points = {}
         for name in self.unit_names:
-            x = getattr(self, name)(x)
+            x = getattr(self, name)(x, train)
             end_points[name.split("_")[0]] = x
         return x, end_points
 

@@ -25,6 +25,10 @@ launches = 0
 _weights_cache: dict = {}
 _sm_count: dict = {}
 MAX_THREADS = 544       # consumer threads a CTA; a producer warp joins them
+# logits of one joint that one consumer sums in a frame, in float32: at
+# 408 its rounding reached 1.5e-4 cells on the H100, at 94 (the main
+# path) 3e-5 (PERF.md)
+MAX_TERMS = 128
 _MAX_STAGES = 8
 _MAX_SMEM = 232448      # bytes of shared memory a CTA may use on sm_90
 H100_SMS = 132
@@ -79,10 +83,15 @@ def _weights(h: int, w: int, gauss_len: float, truncate: float,
     return wts
 
 
-def joint_group(joints: int) -> int:
-    """Joints a CTA owns (J): all of them up to MAX_THREADS, else an even
-    split."""
-    groups = -(-joints // MAX_THREADS)
+def joint_group(joints: int, hw: int) -> int:
+    """Joints a CTA owns (J) on maps of ``hw`` pixels: all of them up to
+    MAX_THREADS, else an even split. Where one row of consumers cannot keep
+    each consumer's sum within MAX_TERMS logits even with a cluster of 8
+    CTAs, at most 512 // rows joints, so that ``launch_shape`` gives each
+    joint the ``rows`` it needs."""
+    rows = -(-hw // (8 * MAX_TERMS))
+    cap = MAX_THREADS if rows == 1 else 512 // rows
+    groups = -(-joints // cap)
     return -(-joints // groups)
 
 
@@ -90,7 +99,7 @@ def smem_bytes(h: int, w: int, joints: int, layout: Layout) -> int:
     """Dynamic shared memory of a launch (smem_bytes in the .cu):
     the barriers, the ring, the weight vectors and the per-joint partials
     of each rank of a cluster."""
-    per = joint_group(joints)
+    per = joint_group(joints, h * w)
     slot = (layout.steps * (layout.threads // per) * joints + 7) & ~3
     floats = layout.stages * slot + 2 * (h + w)
     return (16 * _MAX_STAGES + 16 + 4 * ((floats + 3) & ~3)
@@ -109,10 +118,12 @@ def launch_shape(batch: int, h: int, w: int, joints: int,
     on the H100 every cluster size is one wave of the same work an SM and
     a cluster only adds its CTAs' fixed latency, while at B = 1, 16 and 64
     clusters were up to 1.7x faster than one CTA a frame (PERF.md).
+    Then the cluster grows (to 8 at most) until no consumer sums more
+    than MAX_TERMS logits of a frame.
     Steps: the largest of 16, 8, 4 of which a CTA holds two chunks.
     Stages: 2, fewer where a CTA has one chunk.
     """
-    per = joint_group(joints)
+    per = joint_group(joints, h * w)
     groups = -(-joints // per)
     hw = h * w
     if per == joints and per * w <= MAX_THREADS:   # no more rows than h / 4
@@ -123,6 +134,8 @@ def launch_shape(batch: int, h: int, w: int, joints: int,
     cluster = 1
     while (cluster < 8 and 2 * batch * groups * cluster < sms
            and hw >= 2 * cluster * 2 * 8 * rows):
+        cluster *= 2
+    while cluster < 8 and -(-hw // (cluster * rows)) > MAX_TERMS:
         cluster *= 2
     per_cta = -(-hw // cluster)
     steps = next((s for s in (16, 8) if 2 * s * rows <= per_cta), 4)
@@ -171,7 +184,7 @@ def _launch(scoremaps: torch.Tensor, gamma: float, gauss_len: float,
         lay = layout or launch_shape(b, h, w, c, _sms(dev))
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(scoremaps.data_ptr(), wts.data_ptr(), mu.data_ptr(),
-                lik.data_ptr(), b, h, w, c, joint_group(c), lay.threads,
+                lik.data_ptr(), b, h, w, c, joint_group(c, h * w), lay.threads,
                 lay.cluster, lay.stages, lay.steps, float(gamma), stream)
     if rc != 0:
         raise RuntimeError(f"softargmax_likelihood launch failed: CUDA error "
@@ -221,9 +234,11 @@ class _SoftargmaxCuda(torch.autograd.Function):
 def softargmax_2d_cuda(scoremaps: torch.Tensor, gamma: float = 1.0,
                        gauss_len: float = 2.0,
                        truncate: float = 1.0) -> torch.Tensor:
-    """Differentiable (B, H, W, C) logits -> mu (B, C, 2)."""
-    _check(scoremaps)
+    """Differentiable (B, H, W, C) logits -> mu (B, C, 2). On the CPU the
+    plain version, in the logits' own float dtype; on the card the kernel,
+    which takes float32 only."""
     if scoremaps.device.type == "cpu":
         return plain.softargmax_2d(scoremaps, gamma=gamma,
                                    gauss_len=gauss_len, truncate=truncate)[0]
+    _check(scoremaps)
     return _SoftargmaxCuda.apply(scoremaps, gamma, gauss_len, truncate)

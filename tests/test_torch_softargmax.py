@@ -181,38 +181,55 @@ def test_wrapper_checks_inputs():
 
 
 # (batch, h, w, joints): the main path's full-frame and crop maps, output
-# stride 8's full frame, a single frame, small odd maps, and more joints
-# than a CTA's threads
+# stride 8's full frame, a single frame, small odd maps, more joints than a
+# CTA's threads, many joints on large maps, and the DGP training steps'
+# maps (step 2's 11 frames, step 1's 2)
 LAUNCH_CASES = [(128, 94, 104, 5), (128, 52, 56, 5), (128, 186, 208, 5),
                 (1, 94, 104, 5), (3, 23, 31, 4), (2, 4, 4, 3),
-                (4, 64, 64, 40), (2, 8, 8, 2000)]
+                (4, 64, 64, 40), (2, 8, 8, 2000), (128, 94, 104, 300),
+                (128, 186, 208, 40), (11, 94, 104, 5), (2, 94, 104, 5)]
+
+
+def consumer_terms(h, w, lay, rows):
+    """Logits of one joint that one consumer sums in a frame."""
+    return -(-h * w // (lay.cluster * rows))
 
 
 @pytest.mark.parametrize("batch, h, w, joints", LAUNCH_CASES)
 def test_launch_shape(batch, h, w, joints):
     lay = kernel.launch_shape(batch, h, w, joints)
-    per = kernel.joint_group(joints)
-    assert per == joints if joints <= kernel.MAX_THREADS else (
-        per <= kernel.MAX_THREADS)
+    per = kernel.joint_group(joints, h * w)
+    assert per <= kernel.MAX_THREADS
+    if joints <= kernel.MAX_THREADS and h * w <= 8 * kernel.MAX_TERMS:
+        assert per == joints
     assert lay.cluster in (1, 2, 4, 8) and 1 <= lay.stages <= 8
     assert lay.steps in (4, 8, 16)
     assert per <= lay.threads <= kernel.MAX_THREADS
     assert lay.threads % per == 0
     assert kernel.smem_bytes(h, w, joints, lay) <= 227 * 1024
     rows = lay.threads // per
-    # clusters only while the frames leave half the SMs idle, and each CTA
-    # of a cluster keeps a chunk of pixels
+    # the cap on a consumer's float32 sum (PERF.md)
+    assert consumer_terms(h, w, lay, rows) <= kernel.MAX_TERMS
+    # clusters only while the frames leave half the SMs idle or where the
+    # cap needs them, and each CTA of a cluster keeps a chunk of pixels
     groups = -(-joints // per)
     sms = kernel.H100_SMS
-    assert lay.cluster == 1 or 2 * batch * groups * (lay.cluster // 2) < sms
+    half = lay._replace(cluster=lay.cluster // 2)
+    assert lay.cluster == 1 or (
+        2 * batch * groups * half.cluster < sms
+        or consumer_terms(h, w, half, rows) > kernel.MAX_TERMS)
     assert lay.cluster == 8 or 2 * batch * groups * lay.cluster >= sms or (
         h * w < 2 * lay.cluster * 16 * rows)
     assert lay.cluster == 1 or h * w >= lay.cluster * 16 * rows
     assert lay.steps == 4 or 2 * lay.cluster * lay.steps * rows <= h * w
-    if batch == 128 and (h, w) == (94, 104):    # the measured fastest
+    if (batch, h, w, joints) == (128, 94, 104, 5):  # the measured fastest
         assert lay == kernel.Layout(1, 520, 2, 16)
-    if batch == 1 and (h, w) == (94, 104):
+    if batch in (1, 11) and (h, w, joints) == (94, 104, 5):
         assert lay == kernel.Layout(4, 520, 2, 8)
+    if (batch, h, w, joints) == (128, 94, 104, 300):    # six joint groups
+        assert per == 50 and lay == kernel.Layout(8, 500, 1, 16)
+    if (batch, h, w, joints) == (128, 186, 208, 40):    # four
+        assert per == 10 and lay == kernel.Layout(8, 510, 1, 16)
     if joints * w <= kernel.MAX_THREADS:        # one column a consumer
         assert rows % w == 0
 
@@ -242,7 +259,7 @@ def simulate_kernel(x, weights, gamma, layout, offset=0):
     bsz, h, w, c = x.shape
     flat = x.reshape(-1)
     reads = np.zeros(flat.size, np.int64)
-    per = kernel.joint_group(c)
+    per = kernel.joint_group(c, h * w)
     threads, k, steps = layout.threads, layout.cluster, layout.steps
     rows = threads // per
     column = rows % w == 0
@@ -287,28 +304,34 @@ def simulate_kernel(x, weights, gamma, layout, offset=0):
                         loc = (q - q0) * c + c0 + cl + u * rows * c
                         assert (loc[ok] < n).all()
                         reads[ga + loc[ok]] += 1
-                        v[u, ok] = flat[ga + loc[ok]] * scale
-                    mc = v.max(0)
+                        v[u, ok] = flat[ga + loc[ok]]
+                    mc = (v * scale).max(0)
                     up = mc > m
                     f = np.exp2(m[up] - mc[up])
                     s0[up] *= f
                     sr[up] *= f
                     sc[up] *= f
                     m[up] = mc[up]
+                    t0, tr, tc = (np.zeros(threads, np.float32)
+                                  for _ in range(3))   # the chunk's sums
                     for u in range(steps):
                         ok = active & (q + u * rows < q1)
-                        e = np.exp2(v[u, ok] - m[ok])
+                        # fmaf(x, scale, -m): one rounding (the float64
+                        # product of two float32 values is exact)
+                        e = np.exp2((v[u, ok].astype(np.float64) * scale
+                                     - m[ok]).astype(np.float32))
                         ii, jj = i[ok], j[ok]
                         if column:
-                            s0[ok] += e * a_w[ii]
-                            sr[ok] += e * ar_w[ii]
+                            t0[ok] += e * a_w[ii]
+                            tr[ok] += e * ar_w[ii]
                         else:
-                            s0[ok] += e * a_w[ii] * b_w[jj]
-                            sc[ok] += e * a_w[ii] * bc_w[jj]
-                            sr[ok] += e * ar_w[ii] * b_w[jj]
+                            t0[ok] += e * a_w[ii] * b_w[jj]
+                            tc[ok] += e * a_w[ii] * bc_w[jj]
+                            tr[ok] += e * ar_w[ii] * b_w[jj]
                         i, j = i + rows // w, j + rows % w
                         if not column:
                             i, j = i + (j >= w), np.where(j >= w, j - w, j)
+                    s0, sr, sc = s0 + t0, sr + tr, sc + tc
                     q = q + chunk_px
                 if column:
                     jj = (p_lo + row) % w
@@ -336,6 +359,9 @@ SIM_CASES = [
     ((2, 11, 12, 33), kernel.Layout(2, 396, 3, 4), 0),
     # joints split over two groups
     ((1, 3, 5, 1100), None, 1),
+    # many joints on the full-frame maps: six groups of 50 and a cluster
+    # of 8, so no consumer sums more than MAX_TERMS logits
+    ((1, 94, 104, 300), None, 1),
 ]
 
 
