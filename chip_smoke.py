@@ -71,18 +71,37 @@ last line is then never printed:
     host-fed (the batch copied to the card every step): steps/s, frames/s,
     peak memory, first and last loss (finite and falling), the decode
     launches (one per DGP step, none in the DLC step) and layout;
-13. profile: where the device time goes, from torch.profiler over 3
-    full-frame batches, 3 tracked-crop steps, 3 int8 full-frame batches
-    and 3 step-2 train steps (device ms per batch by kernel class, device
-    busy share);
-14. the ``{"kernels": [...]}`` line;
-15. ``{"ok": true, "device": {...}}``.
+13. fit: the training entry points with their defaults on the port's
+    synthetic project (utils/synthetic.py) at 747x832, 120 frames, 10
+    labeled, 5 joints, written into a temporary directory that is then
+    deleted; ResNet-50 float32 from a seeded random init: fit_dlc (labeled
+    pool, scale jitter on the card, trainable BN), fit_dgp_labeledonly
+    and fit_dgp(batch_size=10) (frame pools, the reference augmentation
+    on the card), each 22 updates, and a host-fed fit_dgp(wt=1) with
+    Farneback flow, 6 updates; per run steps/s and frames/s between the
+    loss reads at iteration 2 and the last (snapshot writes taken out),
+    peak memory, the pool's MB, losses (finite, falling), the snapshots
+    written and left after pruning, and every kernel's launches (the
+    decode once an update of the DGP runs, never in fit_dlc, no GEMM
+    kernel); then on the card: one pooled against one host-fed update
+    without augmentation on the same window and weights (loss terms and
+    parameters within 1e-6 relative), the augmentation on the card
+    against the CPU on the same draws at (11, 747, 832) (images within
+    1e-3, keypoints within 1e-4 px), skip-if-final, and
+    ``estimate_pose`` from the step-2 final snapshot;
+14. profile: where the device time goes, from torch.profiler over 3
+    full-frame batches, 3 tracked-crop steps, 3 int8 full-frame batches,
+    3 host-fed step-2 train steps and 3 pooled, augmented step-2 steps
+    (device ms per batch by kernel class, device busy share);
+15. the ``{"kernels": [...]}`` line;
+16. ``{"ok": true, "device": {...}}``.
 
 Every kernel wrapper counts its launches; the counts are set to 0 just
-before each main-path run (phases 4, 5, 8, 10 and 12) and read just
-after, and every kernel that the path runs must show launches > 0. The
-weights are random, from a seeded torch.Generator; nothing is read from
-disk but the repository's own sources.
+before each main-path run (phases 4, 5, 8, 10, 12 and each fit run) and
+read just after, and every kernel that the path runs must show launches
+> 0. The weights are random, from a seeded torch.Generator; nothing is
+read from disk but the repository's own sources and the files the fit
+phase writes.
 """
 
 from __future__ import annotations
@@ -91,6 +110,7 @@ import contextlib
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -1314,14 +1334,331 @@ def phase_train(device):
     return lines, step2_lines
 
 
+# the fit phase: the training entry points on a synthetic project at the
+# full frame (utils/synthetic.py), ResNet-50 float32 from a seeded random
+# init (so bn_train resolves to on in fit_dlc)
+FIT_FRAMES, FIT_LABELED = 120, 10
+FIT_ITERS = 22                # updates a run; steps/s over iterations 3-20
+FIT_DISPLAY = 2               # a loss read (a sync) every 2 updates
+FIT_SAVE = 8                  # snapshots at 8 and 16, then the run's last
+FIT_KEEP = 2                  # the project's max_to_keep, so pruning shows
+FIT_WT_ITERS = 6              # the host-fed wt > 0 run (Farneback flow)
+FEED_REL = 1e-6               # pooled against host-fed update, card
+AUG_IMAGE_ATOL, AUG_KEYPOINT_ATOL = 1e-3, 1e-4     # card against CPU
+
+
+def make_fit_project(root, net_type: str = "resnet_50") -> Path:
+    """The port's synthetic project at HW, FIT_FRAMES frames, FIT_LABELED
+    labeled, NUM_JOINTS joints, its pose_cfg on ``net_type`` with
+    max_to_keep FIT_KEEP. Returns its root."""
+    from deepgraphpose_tpu_torch.core.paths import resolve_project
+    from deepgraphpose_tpu_torch.utils.synthetic import make_synthetic_project
+
+    root, _, _ = make_synthetic_project(root, n_frames=FIT_FRAMES,
+                                        n_labeled=FIT_LABELED, hw=HW,
+                                        nj=NUM_JOINTS, seed=SEED)
+    _, cfg, train_dir = resolve_project(root)
+    cfg.net_type, cfg.max_to_keep = net_type, FIT_KEEP
+    cfg.to_yaml(train_dir / "pose_cfg.yaml")
+    return Path(root)
+
+
+@contextlib.contextmanager
+def observed_fit():
+    """Record, while a fit entry point runs, each display sync (iteration,
+    host clock, loss) and each snapshot write (name, seconds), by wrapping
+    ``StepTimer.interval`` and ``checkpoint.save_snapshot``."""
+    from deepgraphpose_tpu_torch.core import checkpoint
+    from deepgraphpose_tpu_torch.utils import profiling
+
+    seen = {"syncs": [], "saves": []}
+    interval, save = profiling.StepTimer.interval, checkpoint.save_snapshot
+
+    def timed_interval(self, iteration, n_steps, **metrics):
+        seen["syncs"].append((iteration, time.perf_counter(),
+                              metrics["loss"]))
+        return interval(self, iteration, n_steps, **metrics)
+
+    def timed_save(*args, **kwargs):
+        t0 = time.perf_counter()
+        path = save(*args, **kwargs)
+        seen["saves"].append((path.name, t0, time.perf_counter() - t0))
+        return path
+
+    profiling.StepTimer.interval = timed_interval
+    checkpoint.save_snapshot = timed_save
+    try:
+        yield seen
+    finally:
+        profiling.StepTimer.interval = interval
+        checkpoint.save_snapshot = save
+
+
+def fit_run(name: str, fn, kwargs: dict, frames_per_update: int,
+            decode_per_update: int) -> dict:
+    """One call of a fit entry point on the card: its printout to stderr;
+    updates, wall seconds, steps/s and frames/s between the syncs at
+    iteration 2 and the run's last sync (snapshot writes in between taken
+    out), peak memory, the pool's MB, the losses, the snapshots written and
+    left after pruning, and every kernel's launches, counted from 0 just
+    before the call. Fails unless the losses are finite and fall (the mean
+    of the last three reads below the first three), the decode launched
+    ``decode_per_update`` times an update and no GEMM kernel launched."""
+    import io
+    import re
+
+    import numpy as np
+    import torch
+
+    from deepgraphpose_tpu_torch.core import checkpoint
+    from deepgraphpose_tpu_torch.core.paths import resolve_project
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    printed = io.StringIO()
+    with observed_fit() as seen, contextlib.redirect_stdout(printed):
+        t0 = time.perf_counter()
+        final = fn(**kwargs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = read_launches()
+    print(printed.getvalue(), file=sys.stderr, end="")
+    _, _, train_dir = resolve_project(kwargs["dlcpath"])
+    step = int(re.search(r"snapshot-step(\d+)", final.name).group(1))
+    debug = kwargs.get("debug", "")
+    _, last_it = checkpoint.latest_intermediate_snapshot(train_dir, step,
+                                                         debug)
+    updates = last_it + 1
+    syncs = seen["syncs"]
+    first = next(i for i, (it, _, _) in enumerate(syncs) if it >= 2)
+    (it_a, t_a, _), (it_b, t_b, _) = syncs[first], syncs[-1]
+    saving = sum(s for _, t, s in seen["saves"] if t_a <= t < t_b)
+    seconds = t_b - t_a - saving
+    losses = [loss for _, _, loss in syncs]
+    pool = re.search(r"\((\d+) MB in device memory\)", printed.getvalue())
+    out = {"phase": "fit", "run": name, "model": "resnet_50", "hw": list(HW),
+           "dtype": "float32", "updates": updates, "wall_s": wall,
+           "timed_iterations": [it_a + 1, it_b], "timed_s": seconds,
+           "snapshot_s_excluded": saving,
+           "steps_per_s": (it_b - it_a) / seconds,
+           "frames_per_s": (it_b - it_a) * frames_per_update / seconds,
+           "frames_per_update": frames_per_update,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "pool_mb": int(pool.group(1)) if pool else None,
+           "feed": "device pool" if pool else "host",
+           "first_loss": losses[0], "last_loss": losses[-1],
+           "losses": losses,
+           "snapshots_written": [n for n, _, _ in seen["saves"]],
+           "snapshots_left": sorted(p.name for p in train_dir.glob(
+               f"snapshot-step{step}{debug}-*.ckpt")),
+           "launches": launches}
+    emit(out)
+    want = {k: 0 for k in launches}
+    want["softargmax_likelihood"] = decode_per_update * updates
+    falling = np.mean(losses[-3:]) < np.mean(losses[:3])
+    if not (np.isfinite(losses).all() and falling) or launches != want:
+        raise AssertionError(f"fit run {name}: losses finite and falling, "
+                             f"launches {want} expected: {out}")
+    return out
+
+
+def dgp_window(root, device, snapshot: str, aug_cfg=None):
+    """One step-2 window of the fit project (batch TRAIN_BATCH, wt 0, from
+    ``snapshot`` in its train dir), for a pooled DGP step: (step, inputs),
+    a model of its own, loaded from the snapshot, behind the step. Also
+    returns a host-fed step on another copy of the model and its inputs,
+    and the FramePool."""
+    import numpy as np
+    import torch
+
+    from deepgraphpose_tpu_torch.core import checkpoint
+    from deepgraphpose_tpu_torch.data.batcher import (MultiDataset,
+                                                      assemble_batch,
+                                                      generate_batch_schedule)
+    from deepgraphpose_tpu_torch.data.prefetch import host_to_device
+    from deepgraphpose_tpu_torch.models.pose_model import PoseModel
+    from deepgraphpose_tpu_torch.ops.dgp_objective import loss_params
+    from deepgraphpose_tpu_torch.train import device_data, fit, steps
+
+    proj, cfg, train_dir = fit.resolve_project(root)
+    cfg = fit._dgp_cfg_overrides(cfg, 2, TRAIN_BATCH, 0.0, 0, 0, 1, False)
+    mds = MultiDataset(proj, cfg, fit.dgp_video_sets(proj, root),
+                       cache_dir=Path(root) / "motion_energy_cache")
+    d = mds.datasets[0]
+    params = loss_params(cfg, proj.skeleton_incidence(), [d.labels_rc],
+                         mds.n_visible_frames_total, mds.n_hidden_frames_total)
+    schedule = generate_batch_schedule([d.visible_frames], [d.hidden_frames],
+                                       [d.chunk], TRAIN_BATCH, 1, 50, seed=0)
+    frames = next(f for _, f in schedule
+                  if np.isin(f, d.visible_frames).any())
+    vis = frames[np.isin(frames, d.visible_frames)]
+    hid = frames[~np.isin(frames, d.visible_frames)]
+    pool = device_data.FramePool(d, device)
+    snap = train_dir / f"{snapshot}.ckpt"
+
+    def model_and_optimizer():
+        model = PoseModel(cfg)
+        checkpoint.restore_backbone_and_heads(model, snap)
+        model = model.to(device, memory_format=torch.channels_last)
+        return model, steps.make_optimizer(model.parameters(), cfg.lr,
+                                           clip_norm=10.0)
+
+    b = assemble_batch(d, vis, hid, pad_to=TRAIN_BATCH + 1, wt=0.0)
+    pooled_model, opt = model_and_optimizer()
+    pooled = device_data.make_pooled_dgp_train_step(pooled_model, params, opt,
+                                                    aug_cfg)
+    host_model, opt = model_and_optimizer()
+    host = steps.make_dgp_train_step(host_model, params, opt)
+    gen = torch.Generator(device).manual_seed(SEED + 2)
+    rows = host_to_device(pool.rows(b.frames), device)
+    return {"pooled": (pooled, lambda: (pool.images, rows,
+                                        b.as_torch(device=device), gen)),
+            "host": (host, lambda: (host_to_device(b.images, device),
+                                    b.as_torch(device=device))),
+            "models": (pooled_model, host_model), "pool": pool,
+            "frames": [int(f) for f in frames]}
+
+
+def pooled_vs_host(root, device, snapshot: str) -> tuple[dict, bool]:
+    """One update through the pool and one host-fed, no augmentation, on the
+    same window and weights, cuDNN deterministic: the largest loss-term
+    error relative to the term, and the largest parameter or buffer error
+    relative to its tensor's largest value; whether both are within
+    FEED_REL."""
+    import torch
+
+    win = dgp_window(root, device, snapshot)
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                    deterministic=True):
+        outs = [step(*inputs()) for step, inputs in (win["pooled"],
+                                                     win["host"])]
+    got, want = outs
+    loss_rel = max(abs(got[k].item() - v.item()) / abs(v.item())
+                   for k, v in want.items() if v.item())
+    pooled, host = (m.state_dict() for m in win["models"])
+    param_rel = max(((pooled[k] - v).abs().max()
+                     / v.abs().max().clamp_min(1e-30)).item()
+                    for k, v in host.items())
+    errors = {"frames": win["frames"], "loss_rel": loss_rel,
+              "param_rel": param_rel}
+    return errors, loss_rel <= FEED_REL and param_rel <= FEED_REL
+
+
+def augment_card_vs_cpu(device, shape,
+                        seed: int = SEED + 13) -> tuple[dict, bool]:
+    """``apply_augment`` of the reference config on the card and on the CPU
+    with the same draws (``draw_augment`` on the card, from ``seed``):
+    images (0-255) within AUG_IMAGE_ATOL, keypoints within
+    AUG_KEYPOINT_ATOL px, present equal; half the frames gated off."""
+    import torch
+
+    from deepgraphpose_tpu_torch.ops import augment_device as aug
+
+    b, h, w = shape
+    cfg = aug.DeviceAugmentConfig.reference(scale_jitter=(0.75, 1.25))
+    gen = torch.Generator(device).manual_seed(seed)
+    images = torch.randint(0, 256, (b, h, w, 3), generator=gen,
+                           device=device, dtype=torch.uint8)
+    coords = torch.rand(b, NUM_JOINTS, 2, generator=gen, device=device)
+    coords = coords * torch.tensor([w - 1.0, h - 1.0], device=device)
+    present = torch.ones(b, NUM_JOINTS, device=device)
+    gate = (torch.arange(b, device=device) % 2 == 0).float()
+    draws = aug.draw_augment(gen, cfg, b, (h, w))
+    card = aug.apply_augment(images, coords, present, cfg, draws, gate=gate)
+    cpu = aug.apply_augment(images.cpu(), coords.cpu(), present.cpu(), cfg,
+                            {k: v.cpu() for k, v in draws.items()},
+                            gate=gate.cpu())
+    errors = {"shape": list(shape),
+              "image_abs": (card[0].cpu() - cpu[0]).abs().max().item(),
+              "keypoint_abs": (card[1].cpu() - cpu[1]).abs().max().item(),
+              "present_equal": bool(torch.equal(card[2].cpu(), cpu[2]))}
+    return errors, (errors["image_abs"] <= AUG_IMAGE_ATOL
+                    and errors["keypoint_abs"] <= AUG_KEYPOINT_ATOL
+                    and errors["present_equal"])
+
+
+def phase_fit(device, workdir) -> tuple[list, dict]:
+    """The training entry points with their defaults on the fit project at
+    747x832: fit_dlc (labeled pool, scale jitter on the card),
+    fit_dgp_labeledonly and fit_dgp(batch_size=10) (frame pools, the
+    reference augmentation on the card), fit_dgp(wt=1, debug="_wt")
+    (host-fed, Farneback flow), then estimate_pose from the step-2 final
+    snapshot on the project's video; the card checks (pooled against
+    host-fed update, augmentation card against CPU, skip-if-final).
+    Returns (the run lines, the pooled augmented step-2 step and inputs
+    for the profile)."""
+    import numpy as np
+
+    from deepgraphpose_tpu_torch.infer.predict import estimate_pose
+    from deepgraphpose_tpu_torch.ops.augment_device import DeviceAugmentConfig
+    from deepgraphpose_tpu_torch.train import fit
+
+    t0 = time.perf_counter()
+    root = make_fit_project(Path(workdir) / "fit_project")
+    emit({"phase": "fit_project", "hw": list(HW), "frames": FIT_FRAMES,
+          "labeled": FIT_LABELED, "joints": NUM_JOINTS,
+          "seconds": time.perf_counter() - t0})
+    common = dict(dlcpath=root, maxiters=FIT_ITERS, displayiters=FIT_DISPLAY,
+                  saveiters=FIT_SAVE, device=device)
+    runs = [fit_run("fit_dlc", fit.fit_dlc, common, 1, 0),
+            fit_run("fit_dgp_labeledonly", fit.fit_dgp_labeledonly, common,
+                    1, 1),
+            fit_run("fit_dgp", fit.fit_dgp,
+                    dict(common, batch_size=TRAIN_BATCH,
+                         saveiters=FIT_SAVE * TRAIN_BATCH), TRAIN_BATCH, 1),
+            fit_run("fit_dgp_wt", fit.fit_dgp,
+                    dict(common, batch_size=TRAIN_BATCH, wt=1.0, debug="_wt",
+                         maxiters=FIT_WT_ITERS, displayiters=1,
+                         saveiters=FIT_SAVE * TRAIN_BATCH), TRAIN_BATCH, 1)]
+    if any(r["feed"] != want for r, want in zip(
+            runs, ("device pool",) * 3 + ("host",))):
+        raise AssertionError(f"fit runs took the wrong feeds: {runs}")
+
+    feed_errors, feed_ok = pooled_vs_host(root, device,
+                                          "snapshot-step1-final--0")
+    aug_errors, aug_ok = augment_card_vs_cpu(
+        device, (TRAIN_BATCH + 1, *HW))
+    _, _, train_dir = fit.resolve_project(root)
+    final = train_dir / "snapshot-step2-final--0.ckpt"
+    printed = contextlib.redirect_stdout(sys.stderr)
+    with printed:
+        again = fit.fit_dgp(dlcpath=root, batch_size=TRAIN_BATCH,
+                            maxiters=FIT_ITERS, device=device)
+        t0 = time.perf_counter()
+        pose = estimate_pose(root / "config.yaml", final,
+                             root / "videos_dgp" / "synthvid.avi",
+                             root / "videos_pred", save_pose=False,
+                             device=device)
+        pose_s = time.perf_counter() - t0
+    xy = np.stack([pose["x"], pose["y"]], -1)
+    out = {"phase": "fit_checks", "pooled_vs_host": feed_errors,
+           "augment_card_vs_cpu": aug_errors,
+           "skip_if_final": again == final,
+           "estimate_pose": {"frames": int(xy.shape[0]), "seconds": pose_s,
+                             "finite": bool(np.isfinite(xy).all()
+                                            and np.isfinite(
+                                                pose["likelihoods"]).all())}}
+    emit(out)
+    if not (feed_ok and aug_ok and out["skip_if_final"]
+            and out["estimate_pose"]["finite"]
+            and xy.shape == (FIT_FRAMES, NUM_JOINTS, 2)):
+        raise AssertionError(f"fit checks failed: {out}")
+    win = dgp_window(root, device, "snapshot-step1-final--0",
+                     DeviceAugmentConfig.reference())
+    return runs, win["pooled"]
+
+
 def kernel_class(name: str) -> str:
     """Sort a device kernel's name into decode, int8_gemm (the port's int8
-    GEMM, matched before the library GEMMs), convolution, elementwise,
-    copy or other."""
+    GEMM, matched before the library GEMMs), convolution, h2d (copies from
+    the host), elementwise, copy (on the device: copies, pads, concats) or
+    other."""
     import re
 
     for label, pattern in (
             ("decode", r"softargmax_likelihood"),
+            ("h2d", r"Memcpy HtoD"),
             ("int8_gemm", r"gemm_kernel<|gemm_kernelI"),
             ("convolution",
              r"(?i)conv|cudnn|xmma|implicit|gemm|wgrad|dgrad|fprop|sm90"),
@@ -1365,7 +1702,10 @@ def profile_path(name: str, step, batches: int) -> dict:
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
 
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    # device kernels and copies; a user annotation (the optimizer's step
+    # range) is a span on the device's timeline, not work
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
     if not kernels:
         raise RuntimeError("the profiler recorded no device kernels")
     by_class: dict[str, float] = {}
@@ -1390,12 +1730,13 @@ def profile_path(name: str, step, batches: int) -> dict:
     }
 
 
-def phase_profile(cfg, device, model, qmodel, train_step2,
+def phase_profile(cfg, device, model, qmodel, train_step2, pooled_step2,
                   batches: int = 3) -> None:
     """Where the device time goes: full-frame batches and tracked-crop
     steps (the crop step alone, at a fixed center) of the bf16 model,
-    full-frame batches of the int8 model, and DGP step-2 train steps
-    (``train_step2``: the step and its host-fed inputs)."""
+    full-frame batches of the int8 model, and DGP step-2 train steps, host-
+    fed (``train_step2``: the step and its inputs) and from the frame pool
+    with the reference augmentation on the card (``pooled_step2``)."""
     import torch
 
     from deepgraphpose_tpu_torch.infer.dynamic import make_crop_infer_fn
@@ -1409,10 +1750,13 @@ def phase_profile(cfg, device, model, qmodel, train_step2,
     center = (HW[0] / 2, HW[1] / 2)
     full_int8 = make_infer_fn(qmodel, cfg)
     train, inputs = train_step2
+    pooled, pooled_inputs = pooled_step2
     for name, step in (("full_frame", lambda: full(frames)),
                        ("tracked_crop", lambda: crop(frames, center)),
                        ("int8_full_frame", lambda: full_int8(frames)),
-                       ("train_step2", lambda: train(*inputs()))):
+                       ("train_step2", lambda: train(*inputs())),
+                       ("fit_dgp_pooled_step2",
+                        lambda: pooled(*pooled_inputs()))):
         emit(profile_path(name, step, batches))
 
 
@@ -1475,10 +1819,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_train_parity(device)
     train_lines, train_step2 = phase_train(device)
-    phase_profile(cfg, device, model, qmodel, train_step2)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_fit_") as workdir:
+        fit_lines, pooled_step2 = phase_fit(device, workdir)
+    phase_profile(cfg, device, model, qmodel, train_step2, pooled_step2)
 
     by_path = {name: path["launches"] for name, path in int8_paths.items()}
     by_path.update({line["phase"]: line["launches"] for line in train_lines})
+    by_path.update({line["run"]: line["launches"] for line in fit_lines})
     decode_by_path = {"full_frame": full_launches,
                       "tracked_crop": crop_launches,
                       **{name: counts["softargmax_likelihood"]

@@ -5,11 +5,14 @@ ResNet-v1 trunk with deconvolutional heads in PyTorch (cuDNN convs in
 ``channels_last``), or its int8 form (``models/quant.py``) whose convs run
 on a tensor-core GEMM written for Hopper (``csrc/int8_gemm.cu``), and the
 soft-argmax + likelihood decode as a CUDA kernel (``csrc/softargmax.cu``).
-It also takes the DGP training steps 0, 1 and 2 on batches assembled on
-the host (``data/batcher.py``, ``train/steps.py``), the objective's decode
-on the same kernel. The module layout and public names follow
-``deepgraphpose_tpu``, which stays the reference; this package imports
-nothing of it, nor JAX. Entry points run on the card unless the caller
+It also trains: the DGP chain's entry points ``fit_dlc``,
+``fit_dgp_labeledonly`` and ``fit_dgp`` (``train/fit.py``) feed their
+steps (``train/steps.py``) from frame pools on the card with on-card
+augmentation (``train/device_data.py``) or from batches assembled on the
+host (``data/batcher.py``), decode the objective's maps on the same
+kernel, and write snapshots in the JAX package's format. The module
+layout and public names follow ``deepgraphpose_tpu``, which stays the
+reference; this package imports nothing of it, nor JAX. Entry points run on the card unless the caller
 passes ``device="cpu"``.
 """
 
@@ -22,6 +25,10 @@ _LAZY_API = {
                       "estimate_pose"),
     "estimate_pose_dynamic": ("deepgraphpose_tpu_torch.infer.dynamic",
                               "estimate_pose_dynamic"),
+    "fit_dlc": ("deepgraphpose_tpu_torch.train.fit", "fit_dlc"),
+    "fit_dgp_labeledonly": ("deepgraphpose_tpu_torch.train.fit",
+                            "fit_dgp_labeledonly"),
+    "fit_dgp": ("deepgraphpose_tpu_torch.train.fit", "fit_dgp"),
 }
 
 

@@ -1,14 +1,31 @@
-"""Read the JAX package's msgpack snapshots and bridge them to PyTorch.
+"""Snapshots in the JAX package's msgpack format, read and written, and the
+weights bridge between its flax trees and the port's PyTorch models.
 
-Snapshot format (written by ``deepgraphpose_tpu.core.checkpoint``): flax
+Snapshot format (``deepgraphpose_tpu.core.checkpoint``): flax
 ``msgpack_serialize`` of ``{"variables": {"params", "batch_stats"}[,
-"opt_state"]}`` in one ``snapshot-step{N}-{it}.ckpt`` file. Array leaves
-are msgpack ExtType 1 (ndarray) or 3 (numpy scalar) whose payload is itself
-msgpack ``(shape, dtype_name, C-order bytes)``; leaves above 2**30 bytes
-are stored as ``{"__msgpack_chunked_array__", "shape", "chunks"}`` dicts.
-This module decodes that with plain ``msgpack``, so no flax is needed.
+"opt_state"]}`` in one ``snapshot-step{N}-{it}.ckpt`` file, every dict's
+keys in sorted order. Array leaves are msgpack ExtType 1 (ndarray) or 3
+(numpy scalar) whose payload is itself msgpack ``(shape, dtype_name,
+C-order bytes)``; leaves above 2**30 bytes are stored as
+``{"__msgpack_chunked_array__", "shape", "chunks"}`` dicts. This module
+reads and writes that with plain ``msgpack``, so no flax is needed: for
+the same arrays it writes the bytes flax writes.
 
-Weights bridge (:func:`state_dict_from_flax`):
+``opt_state`` is flax's ``to_state_dict`` of the optax chain the JAX
+package trains with (``train/steps.py::make_optimizer``): tuples become
+dicts keyed "0", "1", ...; ``clip_by_global_norm`` and a float learning
+rate hold no state ({}); ``sgd``'s momentum keeps ``{"trace": <params
+tree>}`` and a schedule ``{"count": int32}``::
+
+    clip + float lr:  {"0": {}, "1": {"0": {"trace": T}, "1": {}}}
+    clip + schedule:  {"0": {}, "1": {"0": {"trace": T}, "1": {"count": c}}}
+    schedule, no clip: {"0": {"0": {"trace": T}, "1": {"count": c}}}
+
+:func:`opt_state_tree` and :func:`load_optimizer_state` carry
+``ClippedSGD``'s momentum buffers and update count through that layout.
+
+Weights bridge (:func:`state_dict_from_flax`, inverted by
+:func:`flax_from_state_dict`, both bit-exact):
 
 * ``nn.Conv`` kernel (kh, kw, in, out) -> ``Conv2d.weight`` (out, in, kh, kw);
 * ``nn.ConvTranspose`` kernel (kh, kw, in, out), the heads' ``block4`` ->
@@ -16,22 +33,33 @@ Weights bridge (:func:`state_dict_from_flax`):
   flipped (see models/heads.py);
 * ``FrozenBatchNorm``: ``params/{scale, bias}`` and
   ``batch_stats/{mean, var}`` keep their names;
-* the backbone subtree, auto-named by flax inside ``PoseModel``, becomes
-  the port's ``backbone`` attribute.
+* the backbone subtree, auto-named by flax inside ``PoseModel``
+  (``ResNetV1_0``), becomes the port's ``backbone`` attribute.
 
 :func:`quant_state_from_flax` bridges the JAX package's int8 variables
 (``models/quant.py::quantize_model``) to the port's ``QuantizedPoseModel``.
+
+The snapshot bookkeeping (names, pruning to ``max_to_keep``, skip-if-final,
+the newest intermediate snapshot for a mid-step resume) is the JAX
+package's (ref: fitdgp.py:150-152, 237-245; ``final--0`` sorts last).
 """
 
 from __future__ import annotations
 
+import re
 from pathlib import Path
 
 import numpy as np
 import torch
 
+from deepgraphpose_tpu_torch.core import paths as paths_lib
+
 CKPT_SUFFIX = ".ckpt"
 HEAD_NAMES = ("part_pred", "locref_pred", "intermediate_supervision")
+# flax's auto-name of the backbone module inside the JAX PoseModel
+BACKBONE_SCOPE = "ResNetV1_0"
+BN_STATS = ("mean", "var")
+MAX_CHUNK_BYTES = 2 ** 30         # flax.serialization.MAX_CHUNK_SIZE
 
 _EXT_NDARRAY = 1
 _EXT_COMPLEX = 2
@@ -74,16 +102,71 @@ def _unchunk(tree):
     return tree
 
 
-def load_snapshot(path: str | Path):
+def _ndarray_to_bytes(arr: np.ndarray) -> bytes:
+    import msgpack
+
+    return msgpack.packb((arr.shape, arr.dtype.name, arr.tobytes("C")),
+                         use_bin_type=True)
+
+
+def _ext_pack(x):
+    import msgpack
+
+    if isinstance(x, np.ndarray):
+        return msgpack.ExtType(_EXT_NDARRAY, _ndarray_to_bytes(x))
+    if isinstance(x, np.generic):
+        return msgpack.ExtType(_EXT_NPSCALAR, _ndarray_to_bytes(np.asarray(x)))
+    raise TypeError(f"cannot write a {type(x).__name__} into a snapshot")
+
+
+def _chunk(arr: np.ndarray) -> dict:
+    size = max(1, MAX_CHUNK_BYTES // arr.dtype.itemsize)
+    flat = arr.reshape(-1)
+    return {"__msgpack_chunked_array__": True,
+            "shape": {str(i): d for i, d in enumerate(arr.shape)},
+            "chunks": {str(i): flat[j:j + size] for i, j in
+                       enumerate(range(0, flat.size, size))}}
+
+
+def _canonical(tree):
+    """Sorted keys at every level (flax maps the tree through jax, which
+    sorts them) and oversized arrays chunked, as flax writes them."""
+    if isinstance(tree, dict):
+        return {str(k): _canonical(v) for k, v in sorted(tree.items())}
+    if isinstance(tree, np.ndarray) and tree.nbytes > MAX_CHUNK_BYTES:
+        return _chunk(tree)
+    return tree
+
+
+def msgpack_serialize(tree: dict) -> bytes:
+    """The bytes ``flax.serialization.msgpack_serialize`` writes for a tree
+    of dicts with numpy leaves."""
+    import msgpack
+
+    return msgpack.packb(_canonical(tree), default=_ext_pack,
+                         strict_types=True)
+
+
+def load_snapshot(path: str | Path, model: torch.nn.Module | None = None,
+                  optimizer=None):
     """Read a snapshot; returns (variables, opt_state_or_None) as nested
-    dicts of numpy arrays (ref: deepgraphpose_tpu core/checkpoint.py:50-65,
-    without the flax template restore)."""
+    dicts of numpy arrays (ref: deepgraphpose_tpu core/checkpoint.py:50-65).
+
+    With ``model``, its weights are loaded (every tensor); with
+    ``optimizer`` (a ``train/steps.py::ClippedSGD`` over ``model``'s
+    parameters) too, its momentum buffers and update count, where the
+    snapshot holds an optimizer state."""
     import msgpack
 
     raw = msgpack.unpackb(Path(path).read_bytes(), ext_hook=_ext_hook,
                           raw=False, strict_map_key=False)
     raw = _unchunk(raw)
-    return raw["variables"], raw.get("opt_state")
+    variables, opt_state = raw["variables"], raw.get("opt_state")
+    if model is not None:
+        model.load_state_dict(state_dict_from_flax(variables))
+        if optimizer is not None and opt_state is not None:
+            load_optimizer_state(optimizer, model, opt_state)
+    return variables, opt_state
 
 
 def _flatten(tree, prefix=()):
@@ -127,6 +210,31 @@ def _torch_state(variables: dict, backbone: str | None = None) -> dict:
     return out
 
 
+def flax_from_state_dict(state: dict) -> dict:
+    """A ``PoseModel`` state_dict -> the JAX package's ``{"params",
+    "batch_stats"}`` tree of numpy arrays: the inverse of
+    :func:`state_dict_from_flax`, bit for bit. A state of parameters alone
+    (a momentum trace) gives a tree with ``params`` only."""
+    out: dict = {}
+    for key, value in state.items():
+        *mods, name = key.split(".")
+        arr = value.detach().to("cpu", torch.float32)
+        if mods[0] == "backbone":
+            mods[0] = BACKBONE_SCOPE
+        if name == "weight":
+            if mods[0] in HEAD_NAMES:           # nn.ConvTranspose
+                arr = arr.flip(-2, -1).permute(2, 3, 0, 1)
+            else:                               # nn.Conv
+                arr = arr.permute(2, 3, 1, 0)
+            name = "kernel"
+        collection = "batch_stats" if name in BN_STATS else "params"
+        node = out.setdefault(collection, {})
+        for m in mods:
+            node = node.setdefault(m, {})
+        node[name] = arr.contiguous().numpy()
+    return out
+
+
 def quant_state_from_flax(qvariables: dict) -> dict:
     """The JAX package's ``quantize_model`` variables, as numpy, -> the
     port's ``QuantizedPoseModel`` state_dict.
@@ -150,3 +258,149 @@ def quant_state_from_flax(qvariables: dict) -> dict:
         out[f"sites.{site}._extra_state"] = {
             "act_scale": float(np.float32(qvariables["act_scale"][site]))}
     return out
+
+
+# ---------------------------------------------------------------------------
+# optimizer state
+# ---------------------------------------------------------------------------
+
+def opt_state_tree(optimizer, model: torch.nn.Module) -> dict:
+    """``ClippedSGD``'s state in the layout of the optax chain's
+    ``to_state_dict`` (module docstring): the momentum trace (zeros before
+    the first update) and, under a schedule, the update count."""
+    trace = {}
+    for name, p in model.named_parameters():
+        buf = optimizer.state.get(p, {}).get("momentum_buffer")
+        trace[name] = torch.zeros_like(p) if buf is None else buf
+    sgd = {"0": {"trace": flax_from_state_dict(trace)["params"]},
+           "1": ({"count": np.asarray(optimizer.count, np.int32)}
+                 if optimizer.schedule is not None else {})}
+    return {"0": {}, "1": sgd} if optimizer.clip_norm is not None else {
+        "0": sgd}
+
+
+def _find(tree, key: str):
+    """The value under the first ``key`` met in a depth-first walk."""
+    if not isinstance(tree, dict):
+        return None
+    if key in tree:
+        return tree[key]
+    for value in tree.values():
+        found = _find(value, key)
+        if found is not None:
+            return found
+    return None
+
+
+def load_optimizer_state(optimizer, model: torch.nn.Module,
+                         opt_state: dict) -> None:
+    """Set ``optimizer``'s momentum buffers (and its update count, where the
+    state holds one) from a snapshot's ``opt_state``."""
+    trace = state_dict_from_flax({"params": _find(opt_state, "trace")})
+    params = dict(model.named_parameters())
+    if set(trace) != set(params):
+        raise ValueError("the snapshot's momentum trace does not match the "
+                         "model's parameters")
+    for name, p in params.items():
+        optimizer.state[p]["momentum_buffer"] = trace[name].to(
+            p.device, p.dtype)
+    count = _find(opt_state, "count")
+    if count is not None:
+        optimizer.count = int(count)
+
+
+# ---------------------------------------------------------------------------
+# snapshots on disk
+# ---------------------------------------------------------------------------
+
+def save_snapshot(train_dir: str | Path, step: int, iteration: int | str,
+                  model: torch.nn.Module, optimizer=None,
+                  max_to_keep: int = 5, debug: str = "") -> Path:
+    """Write ``snapshot-step{step}-{iteration}.ckpt`` (the model's weights,
+    and the optimizer's state when given) and prune old ones. The card's
+    tensors are copied to the host here, the one sync a snapshot costs."""
+    train_dir = Path(train_dir)
+    train_dir.mkdir(parents=True, exist_ok=True)
+    payload = {"variables": flax_from_state_dict(model.state_dict())}
+    if optimizer is not None:
+        payload["opt_state"] = opt_state_tree(optimizer, model)
+    name = paths_lib.snapshot_name(step, iteration, debug)
+    path = train_dir / f"{name}{CKPT_SUFFIX}"
+    path.write_bytes(msgpack_serialize(payload))
+    _prune_snapshots(train_dir, step, max_to_keep, debug)
+    return path
+
+
+def restore_backbone_and_heads(model: torch.nn.Module,
+                               snapshot_path: str | Path) -> torch.nn.Module:
+    """Load every tensor of a snapshot whose name and shape match ``model``;
+    the rest keep their init (the reference's scope-filtered Saver restore
+    of ['pose/part_pred', 'pose/locref_pred', 'resnet'], ref:
+    fitdgp.py:688-695, as the JAX package merges it)."""
+    variables, _ = load_snapshot(snapshot_path)
+    saved = state_dict_from_flax(variables)
+    merged = {k: saved[k] if k in saved and saved[k].shape == v.shape else v
+              for k, v in model.state_dict().items()}
+    model.load_state_dict(merged)
+    return model
+
+
+def snapshot_exists(train_dir: str | Path, step: int, debug: str = "") -> bool:
+    """Skip-if-done check (ref: fitdgp.py:112-116, 361-365, 656-660)."""
+    name = paths_lib.final_snapshot_name(step, debug)
+    return (Path(train_dir) / f"{name}{CKPT_SUFFIX}").exists()
+
+
+def latest_snapshot(train_dir: str | Path, step: int | None = None,
+                    debug: str = "") -> Path | None:
+    """Most recent snapshot, preferring final, else highest iteration."""
+    train_dir = Path(train_dir)
+    if not train_dir.exists():
+        return None
+    if step is not None:
+        final = train_dir / (f"{paths_lib.final_snapshot_name(step, debug)}"
+                             f"{CKPT_SUFFIX}")
+        if final.exists():
+            return final
+        pats = sorted(train_dir.glob(
+            f"snapshot-step{step}{debug}-*{CKPT_SUFFIX}"), key=_snapshot_iter)
+    else:
+        # across steps: prefer the highest pipeline step, then the highest
+        # iteration (finals sort last within a step)
+        pats = sorted(train_dir.glob(f"snapshot-*{CKPT_SUFFIX}"),
+                      key=lambda p: (_step_num(p), _snapshot_iter(p)))
+    return pats[-1] if pats else None
+
+
+def _step_num(p: Path) -> int:
+    m = re.search(r"snapshot-step(\d+)", p.name)
+    return int(m.group(1)) if m else -1
+
+
+def _snapshot_iter(p: Path) -> int:
+    if p.name.endswith(f"final--0{CKPT_SUFFIX}"):
+        return 10 ** 12  # 'final--0' sorts last
+    m = re.search(r"-(\d+)\.ckpt$", p.name)
+    return int(m.group(1)) if m else 10 ** 12 - 1
+
+
+def _prune_snapshots(train_dir: Path, step: int, max_to_keep: int,
+                     debug: str) -> None:
+    snaps = [p for p in train_dir.glob(
+        f"snapshot-step{step}{debug}-*{CKPT_SUFFIX}") if "final" not in p.name]
+    snaps.sort(key=_snapshot_iter)
+    for p in snaps[:-max_to_keep] if max_to_keep > 0 else []:
+        p.unlink(missing_ok=True)
+
+
+def latest_intermediate_snapshot(train_dir: str | Path, step: int,
+                                 debug: str = "") -> tuple[Path, int] | None:
+    """(path, iteration) of the newest non-final snapshot, for a mid-step
+    resume (the reference can only skip-if-final)."""
+    snaps = [p for p in Path(train_dir).glob(
+        f"snapshot-step{step}{debug}-*{CKPT_SUFFIX}") if "final" not in p.name]
+    if not snaps:
+        return None
+    best = max(snaps, key=_snapshot_iter)
+    m = re.search(r"-(\d+)\.ckpt$", best.name)
+    return (best, int(m.group(1))) if m else None

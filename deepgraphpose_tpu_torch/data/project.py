@@ -1,19 +1,22 @@
-"""DLC project label files: the CollectedData CSV and H5, read and written.
+"""DLC project label and training-set files, read and written.
 
-The port's own copy of ``deepgraphpose_tpu/data/project.py:26-253``:
+The port's own copy of ``deepgraphpose_tpu/data/project.py``:
 
 * ``CollectedData_{scorer}.csv``: 3 header rows (scorer / bodyparts /
   coords), one row per labeled image (ref layout:
   labeled-data/{video}/CollectedData_*.csv);
-* its ``.h5`` twin in pandas' fixed format, through raw h5py (no pytables).
+* its ``.h5`` twin in pandas' fixed format, through raw h5py (no pytables);
+* the training ``.mat`` (DLC MatlabData, through scipy.io) and its
+  Documentation pickle (``project.py:255-359``), which ``fit_dlc`` reads.
 
-``h5py`` is imported inside the H5 functions. The training ``.mat`` and the
-Documentation pickle belong to the fit loops and are not ported yet.
+``h5py`` is imported inside the H5 functions and ``scipy.io`` inside the
+``.mat`` functions.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import pickle
+from dataclasses import dataclass, field
 from pathlib import Path
 
 import numpy as np
@@ -242,3 +245,115 @@ def read_labels(labeled_data_dir: str | Path, scorer: str) -> Labels:
     if h5_path.exists():
         return read_collected_data_h5(h5_path)
     raise FileNotFoundError(f"no CollectedData for scorer {scorer} in {d}")
+
+
+# ---------------------------------------------------------------------------
+# training-set .mat + Documentation pickle
+# ---------------------------------------------------------------------------
+
+@dataclass
+class TrainingSet:
+    """Parsed training dataset (.mat + Documentation pickle)."""
+
+    image_paths: list                    # per item, project-relative
+    sizes: np.ndarray                    # (n, 3) channels/height/width
+    joints: list                         # per item (k, 3): [joint_id, x, y]
+    train_indices: np.ndarray = field(default_factory=lambda: np.empty(0, np.int64))
+    test_indices: np.ndarray = field(default_factory=lambda: np.empty(0, np.int64))
+    train_fraction: float = 0.95
+
+    def coords_for(self, num_joints: int) -> np.ndarray:
+        """(n, nj, 2) pixel (x, y) with NaN for absent joints."""
+        out = np.full((len(self.image_paths), num_joints, 2), np.nan)
+        for i, j in enumerate(self.joints):
+            for row in np.atleast_2d(j):
+                jid = int(row[0])
+                out[i, jid, 0] = row[1]
+                out[i, jid, 1] = row[2]
+        return out
+
+
+def read_training_mat(path: str | Path) -> TrainingSet:
+    """Parse the DLC MatlabData training file via scipy.io."""
+    import scipy.io as sio
+
+    m = sio.loadmat(path)
+    d = m["dataset"]
+    image_paths, sizes, joints = [], [], []
+    for i in range(d.shape[1]):
+        e = d[0, i]
+        img = e["image"]
+        while isinstance(img, np.ndarray):
+            img = img[0]
+        image_paths.append(str(img))
+        sizes.append(np.asarray(e["size"]).reshape(-1)[:3])
+        j = e["joints"]
+        while isinstance(j, np.ndarray) and j.dtype == object:
+            j = j[0, 0] if j.ndim == 2 else j[0]
+        joints.append(np.asarray(j, dtype=np.float64))
+    return TrainingSet(image_paths=image_paths,
+                       sizes=np.asarray(sizes, dtype=np.int64),
+                       joints=joints)
+
+
+class _TolerantUnpickler(pickle.Unpickler):
+    """Unpickler that stubs unavailable classes (e.g. ruamel.yaml scalars)."""
+
+    class _Stub(dict):
+        def __setstate__(self, state):
+            if isinstance(state, dict):
+                self.update(state)
+
+    def find_class(self, module, name):
+        try:
+            return super().find_class(module, name)
+        except Exception:
+            return type(name, (self._Stub,), {"__module__": module})
+
+
+def read_documentation_pickle(path: str | Path) -> tuple:
+    """(data, train_indices, test_indices, train_fraction)."""
+    with open(path, "rb") as f:
+        doc = _TolerantUnpickler(f).load()
+    data, train_idx, test_idx, frac = doc[0], doc[1], doc[2], doc[3]
+    try:
+        frac = float(frac)
+    except Exception:
+        frac = 0.95
+    return data, np.asarray(train_idx), np.asarray(test_idx), frac
+
+
+def write_documentation_pickle(path: str | Path, data: list,
+                               train_idx, test_idx, frac: float) -> None:
+    with open(path, "wb") as f:
+        pickle.dump([data, np.asarray(train_idx), np.asarray(test_idx),
+                     float(frac)], f)
+
+
+def read_training_set(mat_path: str | Path,
+                      doc_path: str | Path | None = None) -> TrainingSet:
+    ts = read_training_mat(mat_path)
+    if doc_path is not None and Path(doc_path).exists():
+        _, tr, te, frac = read_documentation_pickle(doc_path)
+        ts.train_indices = tr.astype(np.int64)
+        ts.test_indices = te.astype(np.int64)
+        ts.train_fraction = frac
+    else:
+        ts.train_indices = np.arange(len(ts.image_paths), dtype=np.int64)
+    return ts
+
+
+def write_training_mat(path: str | Path, image_paths: list,
+                       sizes: np.ndarray, joints: list) -> None:
+    """Write a DLC-compatible MatlabData .mat training file."""
+    import scipy.io as sio
+
+    items = np.zeros((1, len(image_paths)),
+                     dtype=[("image", "O"), ("size", "O"), ("joints", "O")])
+    for i, (p, s, j) in enumerate(zip(image_paths, sizes, joints)):
+        items[0, i]["image"] = np.asarray([p])
+        items[0, i]["size"] = np.asarray(s, dtype=np.int64).reshape(1, 3)
+        cell = np.zeros((1, 1), dtype="O")
+        cell[0, 0] = np.asarray(j)
+        items[0, i]["joints"] = cell
+    sio.savemat(path, {"dataset": items})

@@ -17,6 +17,7 @@ decay.
 
 from __future__ import annotations
 
+import math
 from typing import Callable
 
 import torch
@@ -87,6 +88,22 @@ def piecewise_lr(multi_step: list) -> Callable[[int], float]:
             if count < bound:
                 return rate
         return rates[-1]
+
+    return schedule
+
+
+def cosine_decay_schedule(init_value: float, decay_steps: int,
+                          alpha: float = 0.0) -> Callable[[int], float]:
+    """optax's ``cosine_decay_schedule``: ``init_value`` times
+    ``(1 - alpha) * 0.5 * (1 + cos(pi * min(count, decay_steps) /
+    decay_steps)) + alpha``; fit_dgp's ``lr_decay`` (fit.py:879-886)."""
+    if decay_steps <= 0:
+        raise ValueError(f"decay_steps must be positive, got {decay_steps}")
+
+    def schedule(count: int) -> float:
+        frac = min(count, decay_steps) / decay_steps
+        cosine = 0.5 * (1.0 + math.cos(math.pi * frac))
+        return init_value * ((1.0 - alpha) * cosine + alpha)
 
     return schedule
 

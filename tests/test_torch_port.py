@@ -60,6 +60,22 @@ def test_port_imports_without_jax():
     assert len(port_modules()) >= 20
 
 
+def test_port_imports_without_tensorflow():
+    """TensorFlow is read only inside ``models/tf_import.py``'s checkpoint
+    reader: every port module imports where it cannot be."""
+    code = (
+        "import sys\n"
+        "sys.modules['tensorflow'] = None\n"
+        "import importlib\n"
+        f"for name in {port_modules()!r}:\n"
+        "    importlib.import_module(name)\n"
+        "print('ok')\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.startswith("ok")
+
+
 def test_port_sources_name_no_jax():
     pattern = re.compile(
         r"^\s*(import|from)\s+(jax|flax|optax|deepgraphpose_tpu)(\.|\s|$)",
@@ -482,3 +498,46 @@ def test_int8_gemm_rejects_what_it_does_not_take(cuda_device):
                      False, torch.int32)
     with pytest.raises(ValueError):
         gk.conv_int8(x, w, 3, 1, 1, 1, None, None, False, torch.float32)
+
+
+@pytest.fixture
+def small_fit_project(monkeypatch, tmp_path, tiny_resnet):
+    """chip_smoke's fit project cut to 40 frames of 96x112, 6 labeled, on
+    the one-unit ResNet, with a seeded random step-1 final snapshot."""
+    from deepgraphpose_tpu_torch.core import checkpoint
+    from deepgraphpose_tpu_torch.core.paths import resolve_project
+    from deepgraphpose_tpu_torch.models.pose_model import init_model
+
+    smoke = smoke_helpers()
+    monkeypatch.setattr(smoke, "HW", (96, 112))
+    monkeypatch.setattr(smoke, "FIT_FRAMES", 40)
+    monkeypatch.setattr(smoke, "FIT_LABELED", 6)
+    root = smoke.make_fit_project(tmp_path / "p", net_type=tiny_resnet)
+    _, cfg, train_dir = resolve_project(root)
+    model = init_model(cfg, torch.Generator().manual_seed(0), device="cpu")
+    checkpoint.save_snapshot(train_dir, 1, "final--0", model)
+    return smoke, root
+
+
+@pytest.mark.cuda
+def test_pooled_dgp_step_on_card_matches_host_fed(cuda_device,
+                                                  small_fit_project):
+    """One step-2 update from the frame pool and one host-fed, without
+    augmentation, on the same window and weights: loss terms and every
+    parameter and buffer within 1e-6 relative (chip_smoke's fit check)."""
+    smoke, root = small_fit_project
+    errors, ok = smoke.pooled_vs_host(root, cuda_device,
+                                      "snapshot-step1-final--0")
+    assert ok, errors
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", range(13, 23))
+@pytest.mark.parametrize("shape", [(11, 747, 832), (3, 37, 53)])
+def test_augment_batch_on_card_matches_cpu(cuda_device, shape, seed):
+    """The reference augmentation on the card against the CPU on the same
+    draws: images within 1e-3 (0-255), keypoints within 1e-4 px, present
+    equal (chip_smoke's fit check, at ten seeds of images and draws)."""
+    errors, ok = smoke_helpers().augment_card_vs_cpu(cuda_device, shape,
+                                                     seed)
+    assert ok, errors
