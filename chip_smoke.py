@@ -77,37 +77,52 @@ last line is then never printed:
     deleted; ResNet-50 float32 from a seeded random init: fit_dlc (labeled
     pool, scale jitter on the card, trainable BN), fit_dgp_labeledonly
     and fit_dgp(batch_size=10) (frame pools, the reference augmentation
-    on the card), each 22 updates, and a host-fed fit_dgp(wt=1) with
-    Farneback flow, 6 updates; per run steps/s and frames/s between the
-    loss reads at iteration 2 and the last (snapshot writes taken out),
-    peak memory, the pool's MB, losses (finite, falling), the snapshots
-    written and left after pruning, and every kernel's launches (the
-    decode once an update of the DGP runs, never in fit_dlc, no GEMM
+    on the card), each 22 updates, a host-fed fit_dgp(wt=1) with
+    Farneback flow, 6 updates, fit_dgp(wt=1, device_flow=True) from the
+    frame pool with the Lucas-Kanade flow made on the card, fit_dgp over a
+    pool budget patched down in this script so that the frames rotate
+    through the card in at least 3 segments (segment count, host assembly
+    seconds and one segment's copy time), and fit_dlc and fit_dgp with
+    scan_iters=11 (on the card: CUDA graph replays) beside their eager
+    twins under deterministic cuDNN (final parameters within 1e-5 of each
+    tensor's largest value); per run steps/s and frames/s between the loss
+    reads at iteration 2 and the last (with the superstep: between its
+    first and last dispatch ends; snapshot writes taken out), peak memory,
+    the feed, losses (finite, falling), the snapshots written and left
+    after pruning, and every kernel's launches (the decode once an update
+    of the DGP runs, graph replays counted, never in fit_dlc, no GEMM
     kernel); then on the card: one pooled against one host-fed update
     without augmentation on the same window and weights (loss terms and
     parameters within 1e-6 relative), the augmentation on the card
     against the CPU on the same draws at (11, 747, 832) (images within
-    1e-3, keypoints within 1e-4 px), skip-if-final, and
+    1e-3, keypoints within 1e-4 px), the flow of one window on the card
+    against the CPU (within twice the CPU float32 run's distance from the
+    CPU float64 run, or 1e-5 of the largest value), skip-if-final, and
     ``estimate_pose`` from the step-2 final snapshot;
 14. profile: where the device time goes, from torch.profiler over 3
     full-frame batches, 3 tracked-crop steps, 3 int8 full-frame batches,
-    3 host-fed step-2 train steps and 3 pooled, augmented step-2 steps
-    (device ms per batch by kernel class, device busy share);
+    3 host-fed step-2 train steps, 3 pooled, augmented step-2 steps, 3
+    superstep dispatches of 11 such updates (graph replays), and 3 pooled
+    step-2 steps with the flow made on the card (device ms per update by
+    kernel class, the flow's own, device busy share, kernels and host
+    launch calls per update);
 15. the ``{"kernels": [...]}`` line;
 16. ``{"ok": true, "device": {...}}``.
 
-Every kernel wrapper counts its launches; the counts are set to 0 just
-before each main-path run (phases 4, 5, 8, 10, 12 and each fit run) and
-read just after, and every kernel that the path runs must show launches
-> 0. The weights are random, from a seeded torch.Generator; nothing is
-read from disk but the repository's own sources and the files the fit
-phase writes.
+Every kernel wrapper counts its launches (a superstep adds each graph
+replay's captured launches); the counts are set to 0 just before each
+main-path run (phases 4, 5, 8, 10, 12 and each fit run) and read just
+after, and every kernel that the path runs must show launches > 0. The
+weights are random, from a seeded torch.Generator; nothing is read from
+disk but the repository's own sources and the files the fit phase
+writes.
 """
 
 from __future__ import annotations
 
 import contextlib
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -256,8 +271,6 @@ def offset_view(x):
 def kernel_registers() -> dict:
     """Registers a thread of each decode kernel instantiation, from ptxas's
     report in this run's build (empty if the library was built before)."""
-    import re
-
     from deepgraphpose_tpu_torch.ops.kernels import build
 
     regs, name = {}, None
@@ -536,20 +549,15 @@ def phase_tracked_crop(cfg, device, model):
 
 
 def reset_launches() -> None:
-    from deepgraphpose_tpu_torch.ops.kernels import (int8_gemm_kernel,
-                                                     softargmax_kernel)
+    from deepgraphpose_tpu_torch.ops.kernels import add_launches
 
-    softargmax_kernel.launches = 0
-    for name in int8_gemm_kernel.launches:
-        int8_gemm_kernel.launches[name] = 0
+    add_launches(read_launches(), -1)
 
 
 def read_launches() -> dict:
-    from deepgraphpose_tpu_torch.ops.kernels import (int8_gemm_kernel,
-                                                     softargmax_kernel)
+    from deepgraphpose_tpu_torch.ops.kernels import launch_counts
 
-    return {"softargmax_likelihood": softargmax_kernel.launches,
-            **int8_gemm_kernel.launches}
+    return launch_counts()
 
 
 def op_bound(ops: float, n_bytes: float, ops_per_s: float) -> dict:
@@ -1345,6 +1353,10 @@ FIT_KEEP = 2                  # the project's max_to_keep, so pruning shows
 FIT_WT_ITERS = 6              # the host-fed wt > 0 run (Farneback flow)
 FEED_REL = 1e-6               # pooled against host-fed update, card
 AUG_IMAGE_ATOL, AUG_KEYPOINT_ATOL = 1e-3, 1e-4     # card against CPU
+SCAN_K = 11                   # updates a superstep dispatch
+SCAN_REL = 1e-5               # superstep run against its eager twin, card
+SPILL_SEGMENT_FRAMES = 30     # frames a segment holds besides the labeled
+SPILL_MIN_SEGMENTS = 3
 
 
 def make_fit_project(root, net_type: str = "resnet_50") -> Path:
@@ -1366,13 +1378,24 @@ def make_fit_project(root, net_type: str = "resnet_50") -> Path:
 @contextlib.contextmanager
 def observed_fit():
     """Record, while a fit entry point runs, each display sync (iteration,
-    host clock, loss) and each snapshot write (name, seconds), by wrapping
-    ``StepTimer.interval`` and ``checkpoint.save_snapshot``."""
+    host clock, loss), each superstep dispatch's end (its last iteration
+    and the host clock once the card has run it) and each snapshot write
+    (name, seconds), by wrapping ``StepTimer.interval``,
+    ``fit._log_chunk`` and ``checkpoint.save_snapshot``."""
+    import torch
+
     from deepgraphpose_tpu_torch.core import checkpoint
+    from deepgraphpose_tpu_torch.train import fit
     from deepgraphpose_tpu_torch.utils import profiling
 
-    seen = {"syncs": [], "saves": []}
+    seen = {"syncs": [], "saves": [], "chunks": []}
     interval, save = profiling.StepTimer.interval, checkpoint.save_snapshot
+    log_chunk = fit._log_chunk
+
+    def timed_chunk(log, iterations, *args):
+        torch.cuda.synchronize()
+        seen["chunks"].append((iterations[-1], time.perf_counter()))
+        return log_chunk(log, iterations, *args)
 
     def timed_interval(self, iteration, n_steps, **metrics):
         seen["syncs"].append((iteration, time.perf_counter(),
@@ -1387,25 +1410,30 @@ def observed_fit():
 
     profiling.StepTimer.interval = timed_interval
     checkpoint.save_snapshot = timed_save
+    fit._log_chunk = timed_chunk
     try:
         yield seen
     finally:
         profiling.StepTimer.interval = interval
         checkpoint.save_snapshot = save
+        fit._log_chunk = log_chunk
 
 
 def fit_run(name: str, fn, kwargs: dict, frames_per_update: int,
             decode_per_update: int) -> dict:
     """One call of a fit entry point on the card: its printout to stderr;
     updates, wall seconds, steps/s and frames/s between the syncs at
-    iteration 2 and the run's last sync (snapshot writes in between taken
-    out), peak memory, the pool's MB, the losses, the snapshots written and
-    left after pruning, and every kernel's launches, counted from 0 just
-    before the call. Fails unless the losses are finite and fall (the mean
-    of the last three reads below the first three), the decode launched
-    ``decode_per_update`` times an update and no GEMM kernel launched."""
+    iteration 2 and the run's last sync (with the superstep: between the
+    ends of its first and last dispatches; snapshot writes in between taken
+    out), peak memory, the feed (a resident pool and its MB, rotating
+    segments and their count, or the host), the superstep's K and
+    dispatches, whether the flow was made on the card, the losses, the
+    snapshots written and left after pruning, and every kernel's launches
+    (graph replays included), counted from 0 just before the call. Fails
+    unless the losses are finite and fall (the mean of the last three reads
+    below the first three), the decode launched ``decode_per_update`` times
+    an update and no GEMM kernel launched."""
     import io
-    import re
 
     import numpy as np
     import torch
@@ -1431,12 +1459,15 @@ def fit_run(name: str, fn, kwargs: dict, frames_per_update: int,
                                                          debug)
     updates = last_it + 1
     syncs = seen["syncs"]
-    first = next(i for i, (it, _, _) in enumerate(syncs) if it >= 2)
-    (it_a, t_a, _), (it_b, t_b, _) = syncs[first], syncs[-1]
+    marks = seen["chunks"] or [(it, t) for it, t, _ in syncs if it >= 2]
+    (it_a, t_a), (it_b, t_b) = marks[0], marks[-1]
     saving = sum(s for _, t, s in seen["saves"] if t_a <= t < t_b)
     seconds = t_b - t_a - saving
     losses = [loss for _, _, loss in syncs]
-    pool = re.search(r"\((\d+) MB in device memory\)", printed.getvalue())
+    text = printed.getvalue()
+    pool = re.search(r"\((\d+) MB in device memory\)", text)
+    spill = re.search(r"over (\d+) segments, <= 2 x (\d+) MB resident", text)
+    scan = re.search(r"scan superstep K=(\d+)", text)
     out = {"phase": "fit", "run": name, "model": "resnet_50", "hw": list(HW),
            "dtype": "float32", "updates": updates, "wall_s": wall,
            "timed_iterations": [it_a + 1, it_b], "timed_s": seconds,
@@ -1446,13 +1477,19 @@ def fit_run(name: str, fn, kwargs: dict, frames_per_update: int,
            "frames_per_update": frames_per_update,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
            "pool_mb": int(pool.group(1)) if pool else None,
-           "feed": "device pool" if pool else "host",
+           "feed": ("device pool" if pool else "segments" if spill
+                    else "host"),
+           "segments": int(spill.group(1)) if spill else None,
+           "segment_mb": int(spill.group(2)) if spill else None,
+           "lk_flow": "on-device LK flow" in text,
+           "scan_k": int(scan.group(1)) if scan else 0,
+           "dispatches": len(seen["chunks"]),
            "first_loss": losses[0], "last_loss": losses[-1],
            "losses": losses,
            "snapshots_written": [n for n, _, _ in seen["saves"]],
            "snapshots_left": sorted(p.name for p in train_dir.glob(
                f"snapshot-step{step}{debug}-*.ckpt")),
-           "launches": launches}
+           "launches": launches, "final": final.name}
     emit(out)
     want = {k: 0 for k in launches}
     want["softargmax_likelihood"] = decode_per_update * updates
@@ -1463,12 +1500,14 @@ def fit_run(name: str, fn, kwargs: dict, frames_per_update: int,
     return out
 
 
-def dgp_window(root, device, snapshot: str, aug_cfg=None):
-    """One step-2 window of the fit project (batch TRAIN_BATCH, wt 0, from
-    ``snapshot`` in its train dir), for a pooled DGP step: (step, inputs),
-    a model of its own, loaded from the snapshot, behind the step. Also
-    returns a host-fed step on another copy of the model and its inputs,
-    and the FramePool."""
+def fit_window(root, device, snapshot: str, wt: float = 0.0) -> dict:
+    """One step-2 window of the fit project (batch TRAIN_BATCH, with a
+    labeled frame, ``wt`` for the temporal clique): its ``DGPBatch`` as
+    the host feed makes it (``batch``, frames and flow included) and as
+    the pooled fit loop makes it (``pool_batch``: labels and masks only),
+    its FramePool rows on the card, the pool, the objective's parameters,
+    and a function that makes a model loaded from ``snapshot`` (in the
+    project's train dir) and its optimizer."""
     import numpy as np
     import torch
 
@@ -1482,7 +1521,7 @@ def dgp_window(root, device, snapshot: str, aug_cfg=None):
     from deepgraphpose_tpu_torch.train import device_data, fit, steps
 
     proj, cfg, train_dir = fit.resolve_project(root)
-    cfg = fit._dgp_cfg_overrides(cfg, 2, TRAIN_BATCH, 0.0, 0, 0, 1, False)
+    cfg = fit._dgp_cfg_overrides(cfg, 2, TRAIN_BATCH, wt, 0, 0, 1, False)
     mds = MultiDataset(proj, cfg, fit.dgp_video_sets(proj, root),
                        cache_dir=Path(root) / "motion_energy_cache")
     d = mds.datasets[0]
@@ -1504,20 +1543,132 @@ def dgp_window(root, device, snapshot: str, aug_cfg=None):
         return model, steps.make_optimizer(model.parameters(), cfg.lr,
                                            clip_norm=10.0)
 
-    b = assemble_batch(d, vis, hid, pad_to=TRAIN_BATCH + 1, wt=0.0)
-    pooled_model, opt = model_and_optimizer()
-    pooled = device_data.make_pooled_dgp_train_step(pooled_model, params, opt,
-                                                    aug_cfg)
-    host_model, opt = model_and_optimizer()
-    host = steps.make_dgp_train_step(host_model, params, opt)
+    b = assemble_batch(d, vis, hid, pad_to=TRAIN_BATCH + 1, wt=wt)
+    return {"batch": b, "rows": host_to_device(pool.rows(b.frames), device),
+            "pool_batch": assemble_batch(d, vis, hid, pad_to=TRAIN_BATCH + 1,
+                                         wt=wt, with_images=False),
+            "pool": pool, "params": params, "frames": [int(f) for f in frames],
+            "model_and_optimizer": model_and_optimizer}
+
+
+def dgp_window(root, device, snapshot: str, aug_cfg=None, wt: float = 0.0,
+               device_flow: bool = False):
+    """A pooled DGP step on :func:`fit_window`'s window: (step, inputs), a
+    model of its own, loaded from the snapshot, behind the step. Also
+    returns a host-fed step on another copy of the model and its inputs,
+    and the FramePool."""
+    import torch
+
+    from deepgraphpose_tpu_torch.data.prefetch import host_to_device
+    from deepgraphpose_tpu_torch.train import device_data, steps
+
+    win = fit_window(root, device, snapshot, wt)
+    b, pool, rows = win["batch"], win["pool"], win["rows"]
+    pb = win["pool_batch"]
+    pooled_model, opt = win["model_and_optimizer"]()
+    pooled = device_data.make_pooled_dgp_train_step(
+        pooled_model, win["params"], opt, aug_cfg, device_flow=device_flow)
+    host_model, opt = win["model_and_optimizer"]()
+    host = steps.make_dgp_train_step(host_model, win["params"], opt)
     gen = torch.Generator(device).manual_seed(SEED + 2)
-    rows = host_to_device(pool.rows(b.frames), device)
     return {"pooled": (pooled, lambda: (pool.images, rows,
-                                        b.as_torch(device=device), gen)),
+                                        pb.as_torch(device=device), gen)),
             "host": (host, lambda: (host_to_device(b.images, device),
                                     b.as_torch(device=device))),
             "models": (pooled_model, host_model), "pool": pool,
-            "frames": [int(f) for f in frames]}
+            "rows": rows, "frames": win["frames"]}
+
+
+def stacked(win: dict, device, k: int) -> tuple:
+    """The window's pool rows and batch tensors repeated k times, on the
+    card: a superstep's staged inputs."""
+    batch = win["pool_batch"].as_torch(device=device)
+    return (win["rows"].expand(k, -1).contiguous(),
+            {n: v.expand(k, *v.shape).contiguous() for n, v in batch.items()})
+
+
+def scan_window(root, device, snapshot: str, aug_cfg=None, k: int = SCAN_K):
+    """The pooled step-2 superstep on a model loaded from ``snapshot``, and
+    its inputs: :func:`fit_window`'s window k times (step, inputs)."""
+    import torch
+
+    from deepgraphpose_tpu_torch.train import device_data
+
+    win = fit_window(root, device, snapshot)
+    model, opt = win["model_and_optimizer"]()
+    step = device_data.make_pooled_dgp_scan_step(model, win["params"], opt,
+                                                 aug_cfg)
+    rows, batch = stacked(win, device, k)
+    gen = torch.Generator(device).manual_seed(SEED + 2)
+    return step, lambda: (win["pool"].images, rows, batch, gen)
+
+
+def superstep_vs_eager(root, device, snapshot: str, k: int = 3,
+                       aug_cfg=None, bn_train: bool = False) -> dict:
+    """k pooled step-2 updates on :func:`fit_window`'s window from one
+    snapshot and generator seed, cuDNN deterministic: eagerly, and as one
+    superstep dispatch (on the card: a warm-up update, then replays of a
+    CUDA graph). The largest loss-term deviation relative to the term, the
+    largest parameter or buffer deviation relative to its tensor's largest
+    value, and each way's decode launches."""
+    import torch
+
+    from deepgraphpose_tpu_torch.train import device_data
+
+    win = fit_window(root, device, snapshot)
+    pool = win["pool"]
+    got = {}
+    for way in ("eager", "superstep"):
+        model, opt = win["model_and_optimizer"]()
+        gen = torch.Generator(device).manual_seed(SEED + 2)
+        reset_launches()
+        with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                        deterministic=True):
+            if way == "eager":
+                step = device_data.make_pooled_dgp_train_step(
+                    model, win["params"], opt, aug_cfg, bn_train=bn_train)
+                batch = win["pool_batch"].as_torch(device=device)
+                outs = [step(pool.images, win["rows"], batch, gen)
+                        for _ in range(k)]
+                terms = {n: torch.stack([o[n] for o in outs])
+                         for n in outs[0]}
+            else:
+                step = device_data.make_pooled_dgp_scan_step(
+                    model, win["params"], opt, aug_cfg, bn_train=bn_train)
+                terms = step(pool.images, *stacked(win, device, k), gen)
+        torch.cuda.synchronize()
+        got[way] = (terms, model.state_dict(),
+                    read_launches()["softargmax_likelihood"])
+    (want, ref, n_eager), (terms, state, n_scan) = got["eager"], \
+        got["superstep"]
+    return {"k": k, "aug": aug_cfg is not None, "bn_train": bn_train,
+            "loss_rel": max(((terms[n] - v).abs() / v.abs().clamp_min(
+                1e-30)).max().item() for n, v in want.items()),
+            "param_rel": max(((state[n] - v).abs().max()
+                              / v.abs().max().clamp_min(1e-30)).item()
+                             for n, v in ref.items()),
+            "decode_launches": [n_eager, n_scan]}
+
+
+def flow_card_vs_cpu(frames) -> dict:
+    """``flow_magnitude_device`` of (T, H, W, 3) uint8 ``frames`` (a card
+    tensor) on the card and on the CPU in float32, against the CPU in
+    float64: each one's largest deviation, the flow's largest value, and
+    whether the card is within twice the CPU float32 run's deviation or
+    1e-5 of the largest value."""
+    from deepgraphpose_tpu_torch.ops.flow_device import flow_magnitude_device
+
+    card = flow_magnitude_device(frames).cpu()
+    cpu = flow_magnitude_device(frames.cpu())
+    ref = flow_magnitude_device(frames.cpu().double())
+    out = {"shape": list(frames.shape),
+           "card_abs": (card.double() - ref).abs().max().item(),
+           "cpu_abs": (cpu.double() - ref).abs().max().item(),
+           "flow_max": ref.abs().max().item()}
+    out["ok"] = bool(card.shape == ref.shape and card.dtype == cpu.dtype
+                     and out["card_abs"] <= max(2.0 * out["cpu_abs"],
+                                                1e-5 * out["flow_max"]))
+    return out
 
 
 def pooled_vs_host(root, device, snapshot: str) -> tuple[dict, bool]:
@@ -1578,16 +1729,105 @@ def augment_card_vs_cpu(device, shape,
                     and errors["present_equal"])
 
 
+def spill_run(root, common: dict, device) -> dict:
+    """fit_dgp over a pool budget patched down (in this script only) to
+    the labeled frames and SPILL_SEGMENT_FRAMES more a segment, so that the
+    project's frames rotate through the card in segments. Adds to the run's
+    line the host seconds of each segment's assembly and the card's time
+    for one segment's copy from pinned memory (CUDA events)."""
+    import torch
+
+    from deepgraphpose_tpu_torch.train import device_data, fit
+
+    frame_bytes = HW[0] * HW[1] * 3
+    budget = 2 * (FIT_LABELED + SPILL_SEGMENT_FRAMES) * frame_bytes
+    host_segment = device_data.SegmentedFramePool.host_segment
+    assembled = []
+
+    def timed_host_segment(self, k):
+        t0 = time.perf_counter()
+        out = host_segment(self, k)
+        assembled.append((time.perf_counter() - t0, out))
+        return out
+
+    saved = device_data.DEFAULT_POOL_BUDGET_BYTES
+    device_data.DEFAULT_POOL_BUDGET_BYTES = budget
+    device_data.SegmentedFramePool.host_segment = timed_host_segment
+    try:
+        run = fit_run("fit_dgp_spill", fit.fit_dgp,
+                      dict(common, batch_size=TRAIN_BATCH, debug="_spill",
+                           saveiters=FIT_SAVE * TRAIN_BATCH), TRAIN_BATCH, 1)
+    finally:
+        device_data.DEFAULT_POOL_BUDGET_BYTES = saved
+        device_data.SegmentedFramePool.host_segment = host_segment
+    host = torch.from_numpy(assembled[-1][1])
+    host = host.pin_memory() if device.type == "cuda" else host
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    for _ in range(2):                          # the second copy is timed
+        start.record()
+        host.to(device, non_blocking=True)
+        end.record()
+        torch.cuda.synchronize()
+    run.update({"budget_bytes": budget,
+                "segment_host_s": [t for t, _ in assembled],
+                "segment_upload_ms": start.elapsed_time(end),
+                "segment_upload_bytes": host.numel()})
+    emit({"phase": "fit_spill", **{k: run[k] for k in (
+        "segments", "segment_mb", "budget_bytes", "segment_host_s",
+        "segment_upload_ms", "segment_upload_bytes")}})
+    return run
+
+
+def scan_pair(name: str, fn, kwargs: dict, twins: tuple,
+              frames_per_update: int, decode_per_update: int,
+              root) -> list:
+    """The fit run ``name`` with scan_iters=0 and with SCAN_K, cuDNN
+    deterministic, each writing its own snapshots (``twins``: the two
+    runs' extra arguments); fails unless the superstep's final parameters
+    and buffers are within SCAN_REL of each tensor's largest value of the
+    eager twin's."""
+    import torch
+
+    from deepgraphpose_tpu_torch.core import checkpoint
+    from deepgraphpose_tpu_torch.core.paths import resolve_project
+
+    runs = []
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                    deterministic=True):
+        for label, scan, extra in (("eager", 0, twins[0]),
+                                   ("scan", SCAN_K, twins[1])):
+            runs.append(fit_run(f"{name}_{label}" if scan == 0 else name, fn,
+                                dict(kwargs, scan_iters=scan, **extra),
+                                frames_per_update, decode_per_update))
+            torch.cuda.empty_cache()
+    _, _, train_dir = resolve_project(root)
+    eager, scan = (checkpoint.state_dict_from_flax(checkpoint.load_snapshot(
+        train_dir / run["final"])[0]) for run in runs)
+    rel = max(((scan[n] - v).abs().max() / v.abs().max().clamp_min(1e-30)
+               ).item() for n, v in eager.items())
+    out = {"phase": "fit_scan_vs_eager", "run": name, "k": SCAN_K,
+           "param_rel": rel, "steps_per_s": [r["steps_per_s"] for r in runs],
+           "dispatches": runs[1]["dispatches"]}
+    emit(out)
+    if not (rel <= SCAN_REL and runs[1]["scan_k"] == SCAN_K
+            and runs[1]["dispatches"] > 1 and runs[0]["scan_k"] == 0):
+        raise AssertionError(f"superstep run against its eager twin: {out}")
+    return runs
+
+
 def phase_fit(device, workdir) -> tuple[list, dict]:
     """The training entry points with their defaults on the fit project at
     747x832: fit_dlc (labeled pool, scale jitter on the card),
     fit_dgp_labeledonly and fit_dgp(batch_size=10) (frame pools, the
     reference augmentation on the card), fit_dgp(wt=1, debug="_wt")
-    (host-fed, Farneback flow), then estimate_pose from the step-2 final
+    (host-fed, Farneback flow), fit_dgp(wt=1, device_flow=True) (the frame
+    pool, the flow made on the card), fit_dgp over a patched budget
+    (rotating segments), and fit_dlc and fit_dgp with scan_iters=SCAN_K
+    beside their eager twins; then estimate_pose from the step-2 final
     snapshot on the project's video; the card checks (pooled against
-    host-fed update, augmentation card against CPU, skip-if-final).
-    Returns (the run lines, the pooled augmented step-2 step and inputs
-    for the profile)."""
+    host-fed update, augmentation card against CPU, the flow card against
+    CPU, skip-if-final). Returns (the run lines, the steps the profile
+    traces: name -> (step, inputs, updates a call))."""
     import numpy as np
 
     from deepgraphpose_tpu_torch.infer.predict import estimate_pose
@@ -1601,24 +1841,41 @@ def phase_fit(device, workdir) -> tuple[list, dict]:
           "seconds": time.perf_counter() - t0})
     common = dict(dlcpath=root, maxiters=FIT_ITERS, displayiters=FIT_DISPLAY,
                   saveiters=FIT_SAVE, device=device)
+    step2 = dict(common, batch_size=TRAIN_BATCH,
+                 saveiters=FIT_SAVE * TRAIN_BATCH)
     runs = [fit_run("fit_dlc", fit.fit_dlc, common, 1, 0),
             fit_run("fit_dgp_labeledonly", fit.fit_dgp_labeledonly, common,
                     1, 1),
-            fit_run("fit_dgp", fit.fit_dgp,
-                    dict(common, batch_size=TRAIN_BATCH,
-                         saveiters=FIT_SAVE * TRAIN_BATCH), TRAIN_BATCH, 1),
+            fit_run("fit_dgp", fit.fit_dgp, step2, TRAIN_BATCH, 1),
             fit_run("fit_dgp_wt", fit.fit_dgp,
-                    dict(common, batch_size=TRAIN_BATCH, wt=1.0, debug="_wt",
-                         maxiters=FIT_WT_ITERS, displayiters=1,
-                         saveiters=FIT_SAVE * TRAIN_BATCH), TRAIN_BATCH, 1)]
-    if any(r["feed"] != want for r, want in zip(
-            runs, ("device pool",) * 3 + ("host",))):
+                    dict(step2, wt=1.0, debug="_wt", maxiters=FIT_WT_ITERS,
+                         displayiters=1), TRAIN_BATCH, 1),
+            fit_run("fit_dgp_flow", fit.fit_dgp,
+                    dict(step2, wt=1.0, device_flow=True, debug="_flow"),
+                    TRAIN_BATCH, 1),
+            spill_run(root, common, device)]
+    runs += scan_pair("fit_dlc_scan", fit.fit_dlc, common,
+                      (dict(step=10), dict(step=11)), 1, 0, root)
+    runs += scan_pair("fit_dgp_scan", fit.fit_dgp, step2,
+                      (dict(debug="_scan0"), dict(debug="_scan")),
+                      TRAIN_BATCH, 1, root)
+    feeds = {"fit_dlc": "device pool", "fit_dgp_labeledonly": "device pool",
+             "fit_dgp": "device pool", "fit_dgp_wt": "host",
+             "fit_dgp_flow": "device pool", "fit_dgp_spill": "segments"}
+    if any(r["feed"] != feeds.get(r["run"], "device pool") for r in runs) \
+            or not next(r for r in runs if r["run"] == "fit_dgp_flow"
+                        )["lk_flow"] \
+            or runs[5]["segments"] < SPILL_MIN_SEGMENTS:
         raise AssertionError(f"fit runs took the wrong feeds: {runs}")
 
     feed_errors, feed_ok = pooled_vs_host(root, device,
                                           "snapshot-step1-final--0")
     aug_errors, aug_ok = augment_card_vs_cpu(
         device, (TRAIN_BATCH + 1, *HW))
+    flow_win = dgp_window(root, device, "snapshot-step1-final--0", wt=1.0,
+                          device_flow=True)
+    flow_errors = flow_card_vs_cpu(
+        flow_win["pool"].images.index_select(0, flow_win["rows"]))
     _, _, train_dir = fit.resolve_project(root)
     final = train_dir / "snapshot-step2-final--0.ckpt"
     printed = contextlib.redirect_stdout(sys.stderr)
@@ -1634,19 +1891,25 @@ def phase_fit(device, workdir) -> tuple[list, dict]:
     xy = np.stack([pose["x"], pose["y"]], -1)
     out = {"phase": "fit_checks", "pooled_vs_host": feed_errors,
            "augment_card_vs_cpu": aug_errors,
+           "flow_card_vs_cpu": flow_errors,
            "skip_if_final": again == final,
            "estimate_pose": {"frames": int(xy.shape[0]), "seconds": pose_s,
                              "finite": bool(np.isfinite(xy).all()
                                             and np.isfinite(
                                                 pose["likelihoods"]).all())}}
     emit(out)
-    if not (feed_ok and aug_ok and out["skip_if_final"]
+    if not (feed_ok and aug_ok and flow_errors["ok"] and out["skip_if_final"]
             and out["estimate_pose"]["finite"]
             and xy.shape == (FIT_FRAMES, NUM_JOINTS, 2)):
         raise AssertionError(f"fit checks failed: {out}")
-    win = dgp_window(root, device, "snapshot-step1-final--0",
-                     DeviceAugmentConfig.reference())
-    return runs, win["pooled"]
+    reference = DeviceAugmentConfig.reference()
+    pooled = dgp_window(root, device, "snapshot-step1-final--0", reference)
+    return runs, {
+        "fit_dgp_pooled_step2": (*pooled["pooled"], 1),
+        "fit_dgp_scan_step2": (*scan_window(root, device,
+                                            "snapshot-step1-final--0",
+                                            reference), SCAN_K),
+        "fit_dgp_flow_step2": (*flow_win["pooled"], 1)}
 
 
 def kernel_class(name: str) -> str:
@@ -1654,8 +1917,6 @@ def kernel_class(name: str) -> str:
     GEMM, matched before the library GEMMs), convolution, h2d (copies from
     the host), elementwise, copy (on the device: copies, pads, concats) or
     other."""
-    import re
-
     for label, pattern in (
             ("decode", r"softargmax_likelihood"),
             ("h2d", r"Memcpy HtoD"),
@@ -1684,10 +1945,13 @@ def busy_us(intervals) -> float:
     return total
 
 
-def profile_path(name: str, step, batches: int) -> dict:
+def profile_path(name: str, step, batches: int, updates: int = 1) -> dict:
     """Trace ``batches`` calls of ``step`` with torch.profiler: wall ms per
-    batch, the device's busy share of that wall time (union of kernel
-    intervals), and device ms per batch by kernel class."""
+    batch (per update, where a call runs ``updates`` of them), the
+    device's busy share of that wall time (union of kernel intervals),
+    device ms by kernel class, kernels and host launch calls (kernel and
+    graph launches, copies and fills) a batch. Kernels that run inside the
+    ``flow_magnitude_device`` range form the class ``flow``."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1703,40 +1967,56 @@ def profile_path(name: str, step, batches: int) -> dict:
         wall_us = 1e6 * (time.perf_counter() - t0)
 
     # device kernels and copies; a user annotation (the optimizer's step
-    # range) is a span on the device's timeline, not work
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+    # range, the flow's range) is a span on the device's timeline, not work
+    events = prof.events()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
                and not getattr(e, "is_user_annotation", False)]
     if not kernels:
         raise RuntimeError("the profiler recorded no device kernels")
+    flow_spans = [(e.time_range.start, e.time_range.end) for e in events
+                  if e.device_type == DeviceType.CUDA
+                  and getattr(e, "is_user_annotation", False)
+                  and e.name == "flow_magnitude_device"]
+    launch_calls = [e for e in events if e.device_type == DeviceType.CPU
+                    and re.match(r"cu(da)?(LaunchKernel|GraphLaunch|Memcpy"
+                                 r"|Memset|LaunchCooperative)", e.name)]
+    n = batches * updates
     by_class: dict[str, float] = {}
     by_name: dict[str, float] = {}
     for e in kernels:
         us = e.time_range.end - e.time_range.start
-        by_class[kernel_class(e.name)] = by_class.get(
-            kernel_class(e.name), 0.0) + us
+        label = ("flow" if any(a <= e.time_range.start < b
+                               for a, b in flow_spans)
+                 else kernel_class(e.name))
+        by_class[label] = by_class.get(label, 0.0) + us
         by_name[e.name] = by_name.get(e.name, 0.0) + us
     busy = busy_us((e.time_range.start, e.time_range.end) for e in kernels)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     return {
         "phase": "profile", "path": name, "batches": batches,
+        "updates_per_batch": updates,
         "wall_ms_per_batch": wall_us / batches / 1e3,
+        "wall_ms_per_update": wall_us / n / 1e3,
         "device_busy_share": busy / wall_us,
-        "kernels_per_batch": len(kernels) / batches,
-        "device_ms_per_batch": {k: v / batches / 1e3 for k, v in
-                                sorted(by_class.items(),
-                                       key=lambda kv: -kv[1])},
-        "top_kernels_ms_per_batch": [[n[:90], v / batches / 1e3]
-                                     for n, v in top],
+        "kernels_per_update": len(kernels) / n,
+        "host_launch_calls_per_update": len(launch_calls) / n,
+        "device_ms_per_update": {k: v / n / 1e3 for k, v in
+                                 sorted(by_class.items(),
+                                        key=lambda kv: -kv[1])},
+        "top_kernels_ms_per_update": [[k[:90], v / n / 1e3]
+                                      for k, v in top],
     }
 
 
-def phase_profile(cfg, device, model, qmodel, train_step2, pooled_step2,
+def phase_profile(cfg, device, model, qmodel, train_step2, fit_steps: dict,
                   batches: int = 3) -> None:
     """Where the device time goes: full-frame batches and tracked-crop
     steps (the crop step alone, at a fixed center) of the bf16 model,
-    full-frame batches of the int8 model, and DGP step-2 train steps, host-
-    fed (``train_step2``: the step and its inputs) and from the frame pool
-    with the reference augmentation on the card (``pooled_step2``)."""
+    full-frame batches of the int8 model, and DGP step-2 train steps:
+    host-fed (``train_step2``: the step and its inputs), and the fit
+    phase's ``fit_steps`` (from the frame pool with the reference
+    augmentation on the card, eagerly and as the superstep's graph
+    replays; with the flow made on the card)."""
     import torch
 
     from deepgraphpose_tpu_torch.infer.dynamic import make_crop_infer_fn
@@ -1750,14 +2030,14 @@ def phase_profile(cfg, device, model, qmodel, train_step2, pooled_step2,
     center = (HW[0] / 2, HW[1] / 2)
     full_int8 = make_infer_fn(qmodel, cfg)
     train, inputs = train_step2
-    pooled, pooled_inputs = pooled_step2
-    for name, step in (("full_frame", lambda: full(frames)),
-                       ("tracked_crop", lambda: crop(frames, center)),
-                       ("int8_full_frame", lambda: full_int8(frames)),
-                       ("train_step2", lambda: train(*inputs())),
-                       ("fit_dgp_pooled_step2",
-                        lambda: pooled(*pooled_inputs()))):
-        emit(profile_path(name, step, batches))
+    paths = [("full_frame", lambda: full(frames), 1),
+             ("tracked_crop", lambda: crop(frames, center), 1),
+             ("int8_full_frame", lambda: full_int8(frames), 1),
+             ("train_step2", lambda: train(*inputs()), 1)]
+    for name, (step, step_inputs, updates) in fit_steps.items():
+        paths.append((name, lambda s=step, i=step_inputs: s(*i()), updates))
+    for name, step, updates in paths:
+        emit(profile_path(name, step, batches, updates))
 
 
 def main() -> int:
@@ -1820,8 +2100,8 @@ def main() -> int:
     phase_train_parity(device)
     train_lines, train_step2 = phase_train(device)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_fit_") as workdir:
-        fit_lines, pooled_step2 = phase_fit(device, workdir)
-    phase_profile(cfg, device, model, qmodel, train_step2, pooled_step2)
+        fit_lines, fit_steps = phase_fit(device, workdir)
+        phase_profile(cfg, device, model, qmodel, train_step2, fit_steps)
 
     by_path = {name: path["launches"] for name, path in int8_paths.items()}
     by_path.update({line["phase"]: line["launches"] for line in train_lines})

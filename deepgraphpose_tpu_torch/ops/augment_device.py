@@ -215,7 +215,7 @@ def _bilinear_gather(images: torch.Tensor, xs: torch.Tensor,
     return out * valid[..., None]
 
 
-def _upsample_weights(n_in: int, n_out: int, device) -> torch.Tensor:
+def upsample_weights(n_in: int, n_out: int, device) -> torch.Tensor:
     """(n_in, n_out) bilinear weights with half-pixel centers, normalized
     per output sample: ``jax.image.resize``'s weight matrix for an
     upsampling (``jax/_src/image/scale.py::compute_weight_mat``)."""
@@ -240,8 +240,8 @@ def _elastic_field(draws: dict, cfg: DeviceAugmentConfig, hw: tuple,
     rounding, enough to move a 0-255 edge past 1e-3 at ``elastic_alpha``
     10)."""
     coarse = draws["el_coarse"]
-    wh = _upsample_weights(coarse.shape[1], hw[0], coarse.device)
-    ww = _upsample_weights(coarse.shape[2], hw[1], coarse.device)
+    wh = upsample_weights(coarse.shape[1], hw[0], coarse.device)
+    ww = upsample_weights(coarse.shape[2], hw[1], coarse.device)
     field = torch.einsum("bixc,iy->byxc",
                          torch.einsum("bijc,jx->bixc", coarse, ww), wh)
     on = (draws["el_u"] < cfg.apply_prob) & (gate > 0)

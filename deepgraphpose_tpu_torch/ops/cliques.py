@@ -67,7 +67,7 @@ def _sat_lookup(sat: torch.Tensor, r: torch.Tensor,
     p, hp1, wp1 = sat.shape
     r0 = torch.clamp(torch.floor(r), 0, hp1 - 2).to(torch.int64)
     c0 = torch.clamp(torch.floor(c), 0, wp1 - 2).to(torch.int64)
-    zero, one = r.new_tensor(0.0), r.new_tensor(1.0)
+    zero, one = r.new_full((), 0.0), r.new_full((), 1.0)
     fr = torch.minimum(torch.maximum(r - r0, zero), one)    # jnp.clip
     fc = torch.minimum(torch.maximum(c - c0, zero), one)
     pid = torch.arange(p, device=r.device)[:, None].expand_as(r0)
@@ -96,7 +96,7 @@ def box_mean_flow(flow: torch.Tensor, r_min: torch.Tensor,
     c_ = _sat_lookup(sat, r_max, c_min)
     d = _sat_lookup(sat, r_max, c_max)
     area = torch.maximum((r_max - r_min) * (c_max - c_min),
-                         r_min.new_tensor(1e-6))
+                         r_min.new_full((), 1e-6))
     return (d - b - c_ + a) / area
 
 
@@ -125,18 +125,18 @@ def temporal_clique_loss(
     p0 = coords_px[:-1]  # (T-1, nj, 2)
     p1 = coords_px[1:]
     time_dif = torch.sqrt(torch.sum(torch.square(p0 - p1), dim=-1) + 1e-12)
-    zero = coords_px.new_tensor(0.0)
+    zero = coords_px.new_full((), 0.0)
 
     r_min = torch.maximum(torch.minimum(p0[..., 0], p1[..., 0]) - window, zero)
     r_max = torch.minimum(torch.maximum(p0[..., 0], p1[..., 0]) + window,
-                          coords_px.new_tensor(float(h_in)))
+                          coords_px.new_full((), float(h_in)))
     c_min = torch.maximum(torch.minimum(p0[..., 1], p1[..., 1]) - window, zero)
     c_max = torch.minimum(torch.maximum(p0[..., 1], p1[..., 1]) + window,
-                          coords_px.new_tensor(float(w_in)))
+                          coords_px.new_full((), float(w_in)))
 
     mean_flow = box_mean_flow(flow, r_min, c_min, r_max, c_max)  # (T-1, nj)
 
-    one = coords_px.new_tensor(1.0)
+    one = coords_px.new_full((), 1.0)
     inv = torch.minimum(1.0 / (mean_flow + 1e-10), one)
     inv = torch.minimum(inv ** 3, one)  # ref: exp(3 * log(inv)) clipped at 1
     h, w = scoremap_hw

@@ -60,8 +60,11 @@ def weighted_loss(losses: torch.Tensor, weights) -> torch.Tensor:
     ``weights`` broadcasts against ``losses``; the denominator counts the
     number of *broadcast* elements with nonzero weight.
     """
-    weights = torch.as_tensor(weights, dtype=losses.dtype,
-                              device=losses.device)
+    # a number becomes a device scalar by a fill, not a copy from the host
+    # (which would wait for the card and break a CUDA graph's capture)
+    weights = (weights.to(losses.device, losses.dtype)
+               if isinstance(weights, torch.Tensor)
+               else losses.new_full((), weights))
     w = torch.broadcast_to(weights, losses.shape)
     num_present = torch.sum((w != 0).to(losses.dtype))
     total = torch.sum(losses * w)

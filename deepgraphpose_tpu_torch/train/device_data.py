@@ -1,25 +1,31 @@
 """Device-resident training-data pools and the pooled train steps.
 
-The port's own copy of ``deepgraphpose_tpu/train/device_data.py:41-206,
-372-522``. The training sets are small enough to live in device memory
-outright (a labeled set of canvases; a DGP video's frame pool, capped at
-``n_max_frames``), so:
+The port's own copy of ``deepgraphpose_tpu/train/device_data.py`` (but the
+multi-window group steps, which wait for ROADMAP item 16). The training
+sets are small enough to live in device memory outright (a labeled set of
+canvases; a DGP video's frame pool, capped at ``n_max_frames``), so:
 
 * the whole labeled image set (step 0) / per-video frame pool (steps 1-2)
   is copied to the card ONCE as uint8;
 * every iteration sends only row indices and the small label tensors;
 * the batch is gathered on the card inside the train step and augmented
-  there (``ops/augment_device.py``), so augmentation stops being host
-  work on the critical path.
+  there (``ops/augment_device.py``), and with wt > 0 its temporal clique
+  reads a Lucas-Kanade flow made there too (``ops/flow_device.py``), so
+  neither is host work on the critical path.
 
-Pools larger than the budget, the spill tier between them and the host
-feed (``SegmentedFramePool``), the ``lax.scan`` superstep and the
-multi-window group steps wait for ROADMAP item 12b; the fit loops raise
-for them. The temporal clique's host-side flow (wt > 0) keeps the host
-feed (ref: fitdgp_util.py:454-467).
+Frame pools over the budget rotate through device memory in segments
+(:class:`SegmentedFramePool`, :func:`plan_spill_runs`,
+:func:`iter_spill_segments`: the next segment is copied on a side stream
+while the current one trains). The JAX package's ``lax.scan`` superstep, K
+updates a dispatch, is :class:`Superstep` here: on the card each update
+replays a CUDA graph of the pooled update, captured once per pool tensor
+and window shape.
 """
 
 from __future__ import annotations
+
+import queue
+import threading
 
 import numpy as np
 import torch
@@ -29,11 +35,14 @@ from deepgraphpose_tpu_torch.data.prefetch import host_to_device
 from deepgraphpose_tpu_torch.ops.augment_device import (DeviceAugmentConfig,
                                                         augment_batch)
 from deepgraphpose_tpu_torch.ops.dgp_objective import DGPLossParams, dgp_loss
+from deepgraphpose_tpu_torch.ops.flow_device import flow_magnitude_device
+from deepgraphpose_tpu_torch.ops.kernels import add_launches, launch_counts
 from deepgraphpose_tpu_torch.train.steps import (_device, _update,
                                                  dlc_supervised_loss)
 
-# pools larger than this stay off the card: the JAX package's budget (16 GB
-# v5e), kept so that both packages choose the same path for one project
+# frame pools larger than this rotate through segments (a labeled set stays
+# on the host): the JAX package's budget (16 GB v5e), kept so that both
+# packages choose the same path for one project
 DEFAULT_POOL_BUDGET_BYTES = 6 * 1024**3
 
 
@@ -112,6 +121,175 @@ class FramePool:
         return self.images.numel() * self.images.element_size()
 
 
+class SegmentedFramePool:
+    """The spill tier between "the pool fits on the card" and the host feed.
+
+    When a video's frame universe exceeds the budget, the precomputed
+    window schedule is greedily packed into time segments: every labeled
+    (visible) frame stays pinned in the device array, and the other frames
+    of consecutive windows accumulate into a segment until its frame union
+    would pass ``capacity_frames``. One copy to the card then serves every
+    window of the segment, so each frame crosses once per schedule pass,
+    not once per overlapping window (ref hot-loop cost:
+    dataset.py:811-821).
+
+    All segment arrays share one shape ``(n_pinned + capacity, H, W, 3)``
+    (short segments pad with row 0), so the pooled step sees one shape.
+    """
+
+    def __init__(self, ds, windows, capacity_bytes: int):
+        """``windows``: the schedule's frame arrays for this video, in
+        visit order. ``capacity_bytes``: device bytes of ONE resident
+        segment array (pinned block included)."""
+        self.ds = ds
+        pinned = np.unique(np.asarray(ds.visible_frames, np.int64))
+        self._pinned_row = {int(f): i for i, f in enumerate(pinned)}
+        self.pinned = pinned
+        self._pinned_block = None  # decoded once, reused by every segment
+        frame_bytes = int(ds.nx_in) * int(ds.ny_in) * 3
+        cap = capacity_bytes // max(frame_bytes, 1) - len(pinned)
+
+        needed = []
+        for frames in windows:
+            needed.append(sorted({int(f) for f in np.asarray(frames).ravel()
+                                  if int(f) >= 0
+                                  and int(f) not in self._pinned_row}))
+        widest = max((len(n) for n in needed), default=0)
+        if cap < widest:
+            raise ValueError(
+                f"SegmentedFramePool: one window needs {widest} non-pinned "
+                f"frames but the segment budget holds only {cap}")
+
+        self.segments: list[np.ndarray] = []  # sorted frame numbers
+        self.window_segment: list[int] = []
+        cur: set[int] = set()
+        for need in needed:
+            if cur and len(cur | set(need)) > cap:
+                self.segments.append(np.array(sorted(cur), np.int64))
+                cur = set()
+            cur |= set(need)
+            self.window_segment.append(len(self.segments))
+        self.segments.append(np.array(sorted(cur), np.int64))
+
+        self.capacity = max((len(s) for s in self.segments), default=1)
+        self._local = [{int(f): i for i, f in enumerate(seg)}
+                       for seg in self.segments]
+        self.hw = (int(ds.nx_in), int(ds.ny_in))
+
+    @property
+    def n_segments(self) -> int:
+        return len(self.segments)
+
+    @property
+    def nbytes(self) -> int:
+        """Device bytes of ONE resident segment array."""
+        h, w = self.hw
+        return (len(self.pinned) + self.capacity) * h * w * 3
+
+    def host_segment(self, k: int) -> np.ndarray:
+        """Segment ``k``'s host array: the pinned block, then the
+        segment's frames, padded to the shared shape."""
+        h, w = self.hw
+        n = len(self.pinned) + self.capacity
+        out = np.zeros((n, h, w, 3), np.uint8)
+        if len(self.pinned):
+            if self._pinned_block is None:
+                self._pinned_block = self.ds.get_frames(self.pinned)
+            out[:len(self.pinned)] = self._pinned_block
+        seg = self.segments[k]
+        if len(seg):
+            out[len(self.pinned):len(self.pinned) + len(seg)] = \
+                self.ds.get_frames(seg)
+        return out
+
+    def rows(self, frame_numbers, k: int) -> np.ndarray:
+        """Rows into segment ``k``'s array; padding (-1) and unknown frames
+        map to row 0 (masked by frame_mask downstream)."""
+        local = self._local[k]
+        p = len(self.pinned)
+        return np.array(
+            [self._pinned_row[int(f)] if int(f) in self._pinned_row
+             else p + local.get(int(f), -p)
+             for f in frame_numbers], np.int32)
+
+
+def plan_spill_runs(schedule, datasets, capacity_bytes: int, rng):
+    """Regroup a window schedule for segment-rotating training.
+
+    Returns ``(pools, runs)``: a :class:`SegmentedFramePool` a dataset
+    (None where the dataset has no windows) and the runs
+    ``(ds_i, seg_idx, [schedule positions])``. Windows keep their relative
+    order inside a run (with a single run this is the plain pooled visit
+    order); the run order is ``rng``'s permutation, so videos and segments
+    interleave across the pass.
+    """
+    per_ds: dict[int, list[int]] = {}
+    for pos, (ds_i, _frames) in enumerate(schedule):
+        per_ds.setdefault(int(ds_i), []).append(pos)
+    pools: list = [None] * len(datasets)
+    runs = []
+    for ds_i, positions in per_ds.items():
+        pool = SegmentedFramePool(
+            datasets[ds_i], [schedule[p][1] for p in positions],
+            capacity_bytes)
+        pools[ds_i] = pool
+        by_seg: dict[int, list[int]] = {}
+        for w, pos in enumerate(positions):
+            by_seg.setdefault(pool.window_segment[w], []).append(pos)
+        runs.extend((ds_i, k, ps) for k, ps in sorted(by_seg.items()))
+    if len(runs) > 1:
+        order = rng.permutation(len(runs))
+        runs = [runs[int(i)] for i in order]
+    return pools, runs
+
+
+def iter_spill_segments(pools, runs, device):
+    """Yield ``(ds_i, seg_idx, positions, segment)`` a run, ``segment`` the
+    run's frames on ``device``. A background thread assembles the next
+    segment on the host and, to the card, copies it from pinned memory on a
+    side stream while the current one trains; the consumer's stream waits
+    for the copy's event, and the tensor is recorded on that stream so the
+    allocator does not hand its memory out while the consumer still reads
+    it. A producer error is raised on the consumer."""
+    device = torch.device(device)
+    stream = torch.cuda.Stream(device) if device.type == "cuda" else None
+    q: queue.Queue = queue.Queue(maxsize=1)
+
+    def producer():
+        try:
+            for ds_i, k, positions in runs:
+                host = torch.from_numpy(pools[ds_i].host_segment(k))
+                done = None
+                if stream is None:
+                    segment = host.to(device)
+                else:
+                    with torch.cuda.stream(stream):
+                        segment = host.pin_memory().to(device,
+                                                       non_blocking=True)
+                        done = torch.cuda.Event()
+                        done.record(stream)
+                q.put((ds_i, k, positions, segment, done))
+            q.put(None)
+        except BaseException as e:  # noqa: BLE001 - raised on the consumer
+            q.put(e)
+
+    thread = threading.Thread(target=producer, daemon=True)
+    thread.start()
+    while True:
+        item = q.get()
+        if item is None:
+            break
+        if isinstance(item, BaseException):
+            raise item
+        ds_i, k, positions, segment, done = item
+        if done is not None:
+            consumer = torch.cuda.current_stream(device)
+            consumer.wait_event(done)
+            segment.record_stream(consumer)
+        yield ds_i, k, positions, segment
+    thread.join()
+
+
 def resolve_scan_iters(scan_iters) -> int:
     """A fit API ``scan_iters`` argument as a chunk length K (0 = off).
 
@@ -121,6 +299,155 @@ def resolve_scan_iters(scan_iters) -> int:
         return 0
     k = int(scan_iters)
     return k if k > 1 else 0
+
+
+def iter_scan_chunks(start: int, stop: int, save_every: int | None, k: int):
+    """Yield half-open iteration ranges ``[a, b)`` of at most ``k`` updates
+    such that a snapshot boundary (``it % save_every == 0``, ``it > 0``) is
+    always the LAST iteration of its chunk: the trainer writes that
+    snapshot from the state after the chunk. ``save_every`` falsy disables
+    boundary splitting."""
+    it = start
+    while it < stop:
+        end = it + k
+        if save_every:
+            b = ((max(it, 1) + save_every - 1) // save_every) * save_every
+            end = min(end, b + 1)
+        end = min(end, stop)
+        yield it, end
+        it = end
+
+
+def iter_scan_runs(schedule, start: int, save_every: int | None, k: int):
+    """Yield ``(ds_i, a, b)`` chunks of the DGP schedule for the superstep:
+    at most ``k`` consecutive iterations, all from one dataset (one frame
+    pool a dispatch), with snapshot boundaries chunk-final as in
+    :func:`iter_scan_chunks`."""
+    it, n = start, len(schedule)
+    while it < n:
+        ds_i = schedule[it][0]
+        end = min(it + k, n)
+        if save_every:
+            b = ((max(it, 1) + save_every - 1) // save_every) * save_every
+            end = min(end, b + 1)
+        r = it
+        while r < end and schedule[r][0] == ds_i:
+            r += 1
+        yield ds_i, it, r
+        it = r
+
+
+class _Graph:
+    """One pooled update captured in a CUDA graph: its static inputs, the
+    stacked loss terms it writes, and the kernel launches it holds."""
+
+    def __init__(self, graph, inputs: dict, names: list,
+                 terms: torch.Tensor, launches: dict):
+        self.graph, self.inputs = graph, inputs
+        self.names, self.terms, self.launches = names, terms, launches
+
+
+class Superstep:
+    """K pooled updates a dispatch: the JAX package's ``lax.scan``
+    superstep (reference ``make_pooled_*_scan_step``).
+
+    ``superstep(update, staged, generator, fixed)`` runs ``update(inputs)``
+    for ``inputs = {name: staged[name][j]}``, j < K, and returns every loss
+    term stacked to (K,). The K windows' inputs come staged on the device
+    in one copy each, and the loss terms come back in one tensor, so the
+    host reads them once a dispatch.
+
+    On the CPU (the tests) the updates run eagerly. On the card each update
+    replays a CUDA graph of ``update``, captured once for each ``fixed``
+    (the pool tensors the update reads) and input shape: the first update
+    of a shape runs eagerly on a side stream (the warm-up capture needs:
+    the decode kernel's library and constants, the momentum traces, the
+    libraries' handles), the second captures the graph, and every update
+    from then on copies its inputs into the graph's static buffers (on the
+    device), writes its rate into the optimizer's ``neg_lr`` and replays.
+    The generator that draws the augmentation is registered with the
+    graph, so a replay draws what the eager update would draw from the
+    generator's state. A replay launches the captured kernels without
+    their wrappers, so each replay adds the capture's launches to the
+    kernels' counts. A capture that fails raises; nothing falls back to
+    eager updates.
+    """
+
+    def __init__(self, optimizer, draws: bool):
+        """``draws``: whether ``update`` draws from the generator."""
+        self.optimizer = optimizer
+        self.draws = draws
+        self.graphs: dict = {}
+        self._side = None
+
+    def __call__(self, update, staged: dict, generator,
+                 fixed: tuple) -> dict:
+        k = next(iter(staged.values())).shape[0]
+        dev = next(iter(staged.values())).device
+        outs = []
+        if dev.type != "cuda":
+            for j in range(k):
+                out = update({n: v[j] for n, v in staged.items()})
+                outs.append(torch.stack(list(out.values())))
+            return dict(zip(out, torch.stack(outs, 1)))
+        key = (tuple(t.data_ptr() for t in fixed),
+               tuple((n, v.shape[1:], v.dtype) for n, v in staged.items()))
+        for j in range(k):
+            inputs = {n: v[j] for n, v in staged.items()}
+            entry = self.graphs.get(key)
+            if entry is None:           # the warm-up: the names of the terms
+                self.graphs[key], terms = self._warm_up(update, inputs, dev)
+                outs.append(terms)
+                continue
+            if not isinstance(entry, _Graph):
+                entry = self.graphs[key] = self._capture(update, inputs,
+                                                         generator, entry)
+            for n, v in inputs.items():
+                entry.inputs[n].copy_(v)
+            self.optimizer.write_rate()
+            entry.graph.replay()
+            self.optimizer.count += 1
+            add_launches(entry.launches)
+            outs.append(entry.terms.clone())
+        entry = self.graphs[key]
+        names = entry.names if isinstance(entry, _Graph) else entry
+        return dict(zip(names, torch.stack(outs, 1)))
+
+    def _warm_up(self, update, inputs: dict, dev):
+        """One update, eagerly, on a side stream."""
+        if self._side is None:
+            self._side = torch.cuda.Stream(dev)
+        main = torch.cuda.current_stream(dev)
+        self._side.wait_stream(main)
+        with torch.cuda.stream(self._side):
+            out = update(inputs)
+            terms = torch.stack(list(out.values()))
+        main.wait_stream(self._side)
+        return list(out), terms
+
+    def _capture(self, update, inputs: dict, generator, names) -> _Graph:
+        static = {n: v.clone() for n, v in inputs.items()}
+        graph = torch.cuda.CUDAGraph()
+        if self.draws:
+            if not hasattr(graph, "register_generator_state"):
+                raise RuntimeError(
+                    "scan_iters > 1 with on-device augmentation needs "
+                    "torch.cuda.CUDAGraph.register_generator_state "
+                    f"(torch {torch.__version__} has none)")
+            graph.register_generator_state(generator)
+        before = launch_counts()
+        try:
+            with self.optimizer.capturing(), torch.cuda.graph(graph):
+                out = update(static)
+                terms = torch.stack([out[n] for n in names])
+        except Exception as e:
+            raise RuntimeError(
+                "scan_iters > 1: capturing the pooled update in a CUDA "
+                f"graph failed ({e}); train with scan_iters=0") from e
+        after = launch_counts()
+        launches = {n: after[n] - before[n] for n in after}
+        add_launches(launches, -1)      # a capture launches nothing
+        return _Graph(graph, static, names, terms, launches)
 
 
 def augment_dgp_window(generator: torch.Generator, images: torch.Tensor,
@@ -176,10 +503,32 @@ def make_pooled_dlc_train_step(model, cfg: PoseConfig, optimizer,
     return step
 
 
+def make_pooled_dlc_scan_step(model, cfg: PoseConfig, optimizer,
+                              aug_cfg: DeviceAugmentConfig | None,
+                              bn_train: bool = False):
+    """K pooled step-0 updates a dispatch (reference
+    ``make_pooled_dlc_scan_step``): ``step(pool, idxs_stack (K, bs),
+    generator)`` -> every loss term stacked to (K,). Each update is
+    :func:`make_pooled_dlc_train_step`'s; see :class:`Superstep`."""
+    update = make_pooled_dlc_train_step(model, cfg, optimizer, aug_cfg,
+                                        bn_train)
+    superstep = Superstep(optimizer, draws=aug_cfg is not None)
+
+    def step(pool: LabeledImagePool, idxs_stack: torch.Tensor,
+             generator: torch.Generator) -> dict:
+        return superstep(
+            lambda inputs: update(pool, inputs["idxs"], generator),
+            {"idxs": idxs_stack}, generator,
+            (pool.images, pool.coords, pool.present, pool.content_wh))
+
+    return step
+
+
 def make_pooled_dgp_train_step(model, params_obj: DGPLossParams, optimizer,
                                aug_cfg: DeviceAugmentConfig | None,
                                visible_only: bool = False,
-                               bn_train: bool = False):
+                               bn_train: bool = False,
+                               device_flow: bool = False):
     """DGP train step that gathers its window from a :class:`FramePool`:
 
     ``step(pool_images, rows, batch, generator)`` -> loss dict, updating
@@ -188,7 +537,18 @@ def make_pooled_dgp_train_step(model, params_obj: DGPLossParams, optimizer,
     window's labels and masks (its images are not used); see
     :func:`augment_dgp_window` for the augmentation. On the card the
     objective decodes on the CUDA kernel, as in ``train/steps.py``.
+
+    ``device_flow=True`` computes the temporal clique's flow magnitudes
+    from the gathered window (``ops/flow_device.py``), so wt > 0 trains
+    without the host's Farneback flow. It needs ``aug_cfg=None``: frames
+    augmented one by one would lose the temporal coherence the flow
+    measures (the reference turns augmentation off when wt > 0,
+    fitdgp.py:777-779).
     """
+    if device_flow and aug_cfg is not None:
+        raise ValueError("make_pooled_dgp_train_step: aug_cfg must be None "
+                         "when device_flow=True (flow needs unaugmented, "
+                         "temporally coherent frames)")
     key = "total_loss_visible" if visible_only else "total_loss"
     params_obj = params_obj.to(_device(model))
     stride, nj = params_obj.stride, params_obj.nj
@@ -199,9 +559,39 @@ def make_pooled_dgp_train_step(model, params_obj: DGPLossParams, optimizer,
         if aug_cfg is not None:
             images, batch = augment_dgp_window(generator, images, batch,
                                                aug_cfg, stride, nj)
+        if device_flow:
+            batch = dict(batch, flow=flow_magnitude_device(images))
         heads = model(images, train=bn_train)
         out = dgp_loss(heads["part_pred"], heads["locref"], batch, params_obj)
         _update(optimizer, out[key])
         return {k: v.detach() for k, v in out.items()}
+
+    return step
+
+
+def make_pooled_dgp_scan_step(model, params_obj: DGPLossParams, optimizer,
+                              aug_cfg: DeviceAugmentConfig | None,
+                              visible_only: bool = False,
+                              bn_train: bool = False,
+                              device_flow: bool = False):
+    """K pooled DGP updates a dispatch (reference
+    ``make_pooled_dgp_scan_step``): ``step(pool_images, rows_stack (K, B),
+    batch_stack, generator)`` -> every loss term stacked to (K,), where
+    ``batch_stack`` holds every ``DGPBatch.as_torch()`` tensor with a
+    leading K axis. Each update is :func:`make_pooled_dgp_train_step`'s;
+    see :class:`Superstep`."""
+    update = make_pooled_dgp_train_step(model, params_obj, optimizer,
+                                        aug_cfg, visible_only, bn_train,
+                                        device_flow)
+    superstep = Superstep(optimizer, draws=aug_cfg is not None)
+
+    def step(pool_images: torch.Tensor, rows_stack: torch.Tensor,
+             batch_stack: dict, generator: torch.Generator) -> dict:
+        def one(inputs: dict) -> dict:
+            batch = {k: v for k, v in inputs.items() if k != "rows"}
+            return update(pool_images, inputs["rows"], batch, generator)
+
+        return superstep(one, dict(batch_stack, rows=rows_stack), generator,
+                         (pool_images,))
 
     return step

@@ -10,22 +10,28 @@ random stream, and snapshots in the JAX package's msgpack format (each
 package resumes from the other's). Each entry point runs on the card
 (``device=None``) or raises without one; tests pass ``device="cpu"``.
 
-Two feeds, chosen as the JAX package chooses them:
+Three feeds, chosen as the JAX package chooses them:
 
 * the device-resident pools (``train/device_data.py``): the labeled set or
   the DGP frame pool is copied to the card once, each iteration sends row
   indices, and augmentation runs on the card, drawn from a
   ``torch.Generator`` there seeded ``seed + 1`` (step 0) or ``seed + 2``
-  (DGP), as the reference's keys are;
+  (DGP), as the reference's keys are; with wt > 0 and ``device_flow`` the
+  temporal clique's flow is made there too (``ops/flow_device.py``);
+* DGP frame pools over the budget rotate through the card in segments
+  (the spill tier), planned from ``default_rng(seed + 3)`` as the JAX
+  package plans them;
 * the host feed: batches assembled and augmented on the host by a
   background producer that owns the numpy ``rng`` (so the batches equal
   the JAX loop's for one seed), copied through pinned memory.
 
-Losses are read (a sync) only at display intervals. Options of later
-slices raise ``NotImplementedError`` naming their ROADMAP item: data
-parallelism and multi-window updates (16), the ``lax.scan`` superstep, a
-pool over the budget (where the reference spills), bfloat16 training
-(12b), and the on-device flow (13).
+On the pools, ``scan_iters=K`` runs K updates a dispatch (the JAX
+package's ``lax.scan`` superstep; on the card each update replays a CUDA
+graph, ``device_data.Superstep``), with the loss terms read once a
+dispatch. Otherwise losses are read (a sync) only at display intervals.
+Options of later slices raise ``NotImplementedError`` naming their
+ROADMAP item: data parallelism and multi-window updates (16) and bfloat16
+training (12b).
 """
 
 from __future__ import annotations
@@ -59,9 +65,7 @@ from deepgraphpose_tpu_torch.utils import profiling
 # shared plumbing
 # ---------------------------------------------------------------------------
 
-def _later_slices(data_parallel=False, windows_per_device: int = 1,
-                  scan_iters=None, wt: float = 0.0,
-                  device_flow: bool = False) -> None:
+def _later_slices(data_parallel=False, windows_per_device: int = 1) -> None:
     """Raise for the options whose code waits for a later slice."""
     if data_parallel:
         raise NotImplementedError(
@@ -69,16 +73,8 @@ def _later_slices(data_parallel=False, windows_per_device: int = 1,
             "port (ROADMAP item 16)")
     if int(windows_per_device) > 1:
         raise NotImplementedError(
-            "windows_per_device > 1 (multi-window updates) waits for ROADMAP "
-            "item 16 and the group steps of item 12b")
-    if dd.resolve_scan_iters(scan_iters):
-        raise NotImplementedError(
-            "scan_iters > 1: the superstep becomes a CUDA graph only after a "
-            "benchmark shows it pays (ROADMAP item 12b)")
-    if device_flow and wt != 0:
-        raise NotImplementedError(
-            "device_flow (the on-device Lucas-Kanade flow) waits for ROADMAP "
-            "item 13; device_flow=False keeps the host Farneback flow")
+            "windows_per_device > 1 (multi-window updates, and on one card "
+            "the group steps) waits for ROADMAP item 16")
 
 
 def _init_model(cfg: PoseConfig, seed: int, compute_dtype,
@@ -407,6 +403,17 @@ class _Log:
         return final
 
 
+def _log_chunk(log: "_Log", iterations, outs: dict, model,
+               optimizer) -> None:
+    """Hand a superstep's updates to ``log``: its loss terms, stacked to
+    (K,), are read from the card once (one copy, one sync)."""
+    names = list(outs)
+    terms = torch.stack([outs[n] for n in names]).cpu()
+    for j, it in enumerate(iterations):
+        log(it, {n: terms[i, j] for i, n in enumerate(names)}, model,
+            optimizer)
+
+
 def _resume(train_dir: Path, step: int, debug: str, resume: bool, model,
             optimizer, name: str) -> int:
     """Load the newest intermediate snapshot (weights and optimizer state)
@@ -450,10 +457,12 @@ def fit_dlc(snapshot: str | None = None, dlcpath: str | Path = ".",
     it fits; train/device_data.py): per-iteration copies drop to the index
     vector. ``aug=True`` additionally runs the full reference augmentation
     on the card (an extension for from-scratch runs; on the host feed it
-    falls back to jitter only, as the JAX package does). ``data_parallel``
-    and ``scan_iters > 1`` raise (ROADMAP items 16, 12b). ``device``: the
-    card by default; raises without one unless it names the CPU."""
-    _later_slices(data_parallel=data_parallel, scan_iters=scan_iters)
+    falls back to jitter only, as the JAX package does). ``scan_iters=K``
+    (K > 1) runs K updates of the pool a dispatch (on the card each one a
+    CUDA graph's replay; ``None`` = 0, off); the host feed ignores it.
+    ``data_parallel`` raises (ROADMAP item 16). ``device``: the card by
+    default; raises without one unless it names the CPU."""
+    _later_slices(data_parallel=data_parallel)
     device = resolve_device(device)
     proj, cfg, train_dir = resolve_project(dlcpath, shuffle, trainingsetindex)
     if ckpt_lib.snapshot_exists(train_dir, step):
@@ -501,13 +510,16 @@ def fit_dlc(snapshot: str | None = None, dlcpath: str | Path = ".",
             aug_cfg = None
         pooled_step = dd.make_pooled_dlc_train_step(model, cfg, optimizer,
                                                     aug_cfg, bn_train=bn_train)
+        scan_k = dd.resolve_scan_iters(scan_iters)
         print(f"fit_dlc: device-resident pool of {len(data)} images "
               f"({pool.nbytes / 1e6:.0f} MB in device memory)"
-              + (", full on-device augmentation" if aug else ""))
+              + (", full on-device augmentation" if aug else "")
+              + (f", scan superstep K={scan_k}" if scan_k else ""))
     else:
         if aug:
             print("warning: fit_dlc(aug=True) needs the device-data pool; "
                   "falling back to jitter-only host batches")
+        _no_superstep(scan_iters, "fit_dlc")
         train_step = steps_lib.make_dlc_train_step(model, cfg, optimizer,
                                                    bn_train=bn_train)
 
@@ -519,13 +531,25 @@ def fit_dlc(snapshot: str | None = None, dlcpath: str | Path = ".",
     if use_pool:
         generator = torch.Generator(device).manual_seed(seed + 1)
         stream = _index_stream(len(data), bs, deterministic, rng)
-        for it in range(maxiters):
-            idxs = next(stream)
-            if it < start_it:
-                continue
-            out = pooled_step(pool, host_to_device(idxs.astype(np.int64),
-                                                   device), generator)
-            log(it, out, model, optimizer)
+        if scan_k:
+            scan_step = dd.make_pooled_dlc_scan_step(
+                model, cfg, optimizer, aug_cfg, bn_train=bn_train)
+            for _ in range(start_it):  # resume: replay the index stream
+                next(stream)
+            for a, b in dd.iter_scan_chunks(start_it, maxiters, saveiters,
+                                            scan_k):
+                idxs = np.stack([next(stream) for _ in range(b - a)])
+                outs = scan_step(pool, host_to_device(idxs.astype(np.int64),
+                                                      device), generator)
+                _log_chunk(log, range(a, b), outs, model, optimizer)
+        else:
+            for it in range(maxiters):
+                idxs = next(stream)
+                if it < start_it:
+                    continue
+                out = pooled_step(pool, host_to_device(idxs.astype(np.int64),
+                                                       device), generator)
+                log(it, out, model, optimizer)
     else:
         def producer():
             stream = _index_stream(len(data), bs, deterministic, rng)
@@ -550,6 +574,12 @@ def fit_dlc(snapshot: str | None = None, dlcpath: str | Path = ".",
 # ---------------------------------------------------------------------------
 # steps 1 & 2: DGP
 # ---------------------------------------------------------------------------
+
+def _no_superstep(scan_iters, name: str) -> None:
+    if dd.resolve_scan_iters(scan_iters):
+        print(f"warning: {name}(scan_iters={scan_iters}) runs on the "
+              "device-resident pools only; one update a dispatch")
+
 
 def _dgp_cfg_overrides(cfg: PoseConfig, step: int, batch_size: int,
                        wt: float, gm2: int, gm3: int, nepoch: int,
@@ -625,12 +655,18 @@ def fit_dgp(snapshot: str = "snapshot-step1-final--0",
     """Step 2: full semi-supervised DGP (ref: fitdgp.py:549-845).
 
     ``device_data``: keep the per-video frame pools on the card and
-    gather/augment windows there (None = auto when the pools fit and
-    wt == 0; with wt != 0 the flow is host Farneback, so the host feed).
+    gather/augment windows there (None = auto when wt == 0 or the flow is
+    made on the card; pools over ``DEFAULT_POOL_BUDGET_BYTES`` rotate
+    through the card in segments). ``device_flow``: with wt > 0, make the
+    temporal clique's flow on the card (``ops/flow_device.py``, pyramidal
+    Lucas-Kanade) instead of the host's Farneback, so wt > 0 trains from
+    the pools (without augmentation, as the reference trains wt > 0).
     ``lr_decay=True`` anneals the rate with a cosine schedule over the
-    step's update count (floor 5% of lr). ``device_flow`` with wt != 0,
-    ``data_parallel``, ``windows_per_device > 1`` and ``scan_iters > 1``
-    raise (ROADMAP items 13, 16, 12b). ``device``: the card by default."""
+    step's update count (floor 5% of lr). ``scan_iters=K`` (K > 1) runs K
+    updates of the resident pools a dispatch (on the card each one a CUDA
+    graph's replay; ``None`` = 0, off). ``data_parallel`` and
+    ``windows_per_device > 1`` raise (ROADMAP item 16). ``device``: the
+    card by default."""
     return _fit_dgp_impl(
         snapshot=snapshot, dlcpath=dlcpath, shuffle=shuffle, step=step,
         saveiters=saveiters, displayiters=displayiters, maxiters=maxiters,
@@ -652,10 +688,10 @@ def _fit_dgp_impl(snapshot, dlcpath, shuffle, step, saveiters, displayiters,
                   device_flow=False, lr_decay=False,
                   data_parallel=False, windows_per_device=1,
                   scan_iters=None, device=None) -> Path | None:
-    _later_slices(data_parallel, windows_per_device, scan_iters, wt,
-                  device_flow)
+    _later_slices(data_parallel, windows_per_device)
     device = resolve_device(device)
     proj, cfg, train_dir = resolve_project(dlcpath, shuffle, trainingsetindex)
+    name = "fit_dgp_labeledonly" if visible_only else "fit_dgp"
     if ckpt_lib.snapshot_exists(train_dir, step, debug):
         print(f"snapshot-step{step}{debug}-final--0 exists; skipping")
         return ckpt_lib.latest_snapshot(train_dir, step, debug)
@@ -710,26 +746,40 @@ def _fit_dgp_impl(snapshot, dlcpath, shuffle, step, saveiters, displayiters,
     augmenter = Augmenter(apply_prob=0.8) if (aug and wt == 0) else None
 
     # device-resident frame pools: gather windows on the card, send only
-    # indices. Requires wt == 0 (the Farneback flow is host-side, like the
-    # reference); augmentation then runs on the card too.
+    # indices. With wt != 0 the flow must then be made on the card too
+    # (device_flow); augmentation runs on the card. Pools over the budget
+    # rotate through the card in segments instead of dropping to the host
+    # feed (ref hot-loop cost: dataset.py:811-821)
     use_pool = device_data
+    use_spill = False
+    flow_on_device = device_flow and wt != 0
+    budget = dd.DEFAULT_POOL_BUDGET_BYTES
     est = sum((len(d.chunk) + len(d.visible_frames)
                + len(d.hidden_frames)) * d.nx_in * d.ny_in * 3
               for d in mds.datasets)
-    spill = ("the frame pools ({:.1f} GB) exceed the device budget, where "
-             "the reference rotates segments of them (ROADMAP item 12b); "
-             "pass device_data=False for the host feed").format(est / 1e9)
     if use_pool is None:
-        use_pool = wt == 0
-        if use_pool and est > dd.DEFAULT_POOL_BUDGET_BYTES:
-            raise NotImplementedError(spill)
-    elif use_pool and wt != 0:
+        pool_ok = wt == 0 or flow_on_device
+        use_pool = pool_ok and est <= budget
+        use_spill = pool_ok and not use_pool
+    elif use_pool and wt != 0 and not flow_on_device:
         print("warning: device_data with wt != 0 needs device_flow=True "
               "(host-side Farneback otherwise); falling back to host "
               "batches")
         use_pool = False
-    elif use_pool and est > dd.DEFAULT_POOL_BUDGET_BYTES:
-        raise NotImplementedError(spill)
+    elif use_pool and est > budget:
+        print(f"device_data=True frame pools ({est / 1e9:.1f} GB) exceed "
+              "the device budget; using rotating segments")
+        use_pool = False
+        use_spill = True
+    spill_plan = None
+    if use_spill:
+        try:
+            spill_plan = dd.plan_spill_runs(schedule, mds.datasets,
+                                            budget // 2,
+                                            np.random.default_rng(seed + 3))
+        except ValueError as e:
+            print(f"warning: {e}; falling back to host batches")
+            use_spill = False
 
     # lr_decay anneals the step's rate with a cosine schedule over its
     # update count (floor 5% of lr); the reference holds its hard-coded
@@ -747,18 +797,33 @@ def _fit_dgp_impl(snapshot, dlcpath, shuffle, step, saveiters, displayiters,
     start_it = _resume(train_dir, step, debug, resume, model, optimizer,
                        f"step {step}")
 
+    scan_k = dd.resolve_scan_iters(scan_iters) if use_pool else 0
+    if use_pool or use_spill:
+        aug_cfg_dev = (dd.DeviceAugmentConfig.reference()
+                       if augmenter is not None else None)
+        factory = (dd.make_pooled_dgp_scan_step if scan_k
+                   else dd.make_pooled_dgp_train_step)
+        pooled_step = factory(model, params, optimizer, aug_cfg_dev,
+                              visible_only=visible_only, bn_train=bn_train,
+                              device_flow=flow_on_device)
+        extras = ((", on-device augmentation" if aug_cfg_dev else "")
+                  + (", on-device LK flow" if flow_on_device else "")
+                  + (f", scan superstep K={scan_k}" if scan_k else ""))
     if use_pool:
         pools = [dd.FramePool(d, device) for d in mds.datasets]
         total_mb = sum(p.nbytes for p in pools) / 1e6
-        aug_cfg_dev = (dd.DeviceAugmentConfig.reference()
-                       if augmenter is not None else None)
-        pooled_step = dd.make_pooled_dgp_train_step(
-            model, params, optimizer, aug_cfg_dev,
-            visible_only=visible_only, bn_train=bn_train)
         print(f"step {step}: device-resident frame pools "
-              f"({total_mb:.0f} MB in device memory)"
-              + (", on-device augmentation" if aug_cfg_dev else ""))
+              f"({total_mb:.0f} MB in device memory)" + extras)
+    elif use_spill:
+        spill_pools, spill_runs = spill_plan
+        live = [p for p in spill_pools if p is not None]
+        print(f"step {step}: segment-rotating frame pools "
+              f"({est / 1e9:.1f} GB over "
+              f"{sum(p.n_segments for p in live)} segments, <= 2 x "
+              f"{max(p.nbytes for p in live) / 1e6:.0f} MB resident)"
+              + extras)
     else:
+        _no_superstep(scan_iters, name)
         train_step = steps_lib.make_dgp_train_step(
             model, params, optimizer, visible_only=visible_only,
             bn_train=bn_train)
@@ -776,13 +841,29 @@ def _fit_dgp_impl(snapshot, dlcpath, shuffle, step, saveiters, displayiters,
                 rng.integers(len(d.visible_frames))]])
         return vis, hid
 
-    name = "fit_dgp_labeledonly" if visible_only else "fit_dgp"
     log = _Log(name, train_dir, step, n_iters, displayiters, save_every,
                "total_loss_visible" if visible_only else "total_loss",
                cfg.max_to_keep, tb_log, debug)
 
-    if use_pool:
-        generator = torch.Generator(device).manual_seed(seed + 2)
+    generator = torch.Generator(device).manual_seed(seed + 2)
+    if scan_k:
+        for ds_i, a, b in dd.iter_scan_runs(schedule, start_it, save_every,
+                                            scan_k):
+            rows, batches = [], []
+            for it in range(a, b):
+                vis, hid = split_window(ds_i, schedule[it][1])
+                bb = assemble_batch(mds.datasets[ds_i], vis, hid,
+                                    pad_to=pad_to, wt=cfg.wt,
+                                    with_images=False)
+                rows.append(pools[ds_i].rows(bb.frames))
+                batches.append(bb.as_np())
+            batch = {k: host_to_device(np.stack([x[k] for x in batches]),
+                                       device) for k in batches[0]}
+            outs = pooled_step(pools[ds_i].images,
+                               host_to_device(np.stack(rows), device), batch,
+                               generator)
+            _log_chunk(log, range(a, b), outs, model, optimizer)
+    elif use_pool:
         for it, (ds_i, frames) in enumerate(schedule):
             if it < start_it:
                 continue
@@ -793,6 +874,24 @@ def _fit_dgp_impl(snapshot, dlcpath, shuffle, step, saveiters, displayiters,
             out = pooled_step(pools[ds_i].images, rows,
                               b.as_torch(device=device), generator)
             log(it, out, model, optimizer)
+    elif use_spill:
+        # ``it`` counts updates in the runs' order, as the JAX package's
+        # spill loop does
+        it = 0
+        for ds_i, k, positions, segment in dd.iter_spill_segments(
+                spill_pools, spill_runs, device):
+            for pos in positions:
+                if it >= start_it:
+                    vis, hid = split_window(ds_i, schedule[pos][1])
+                    b = assemble_batch(mds.datasets[ds_i], vis, hid,
+                                       pad_to=pad_to, wt=cfg.wt,
+                                       with_images=False)
+                    rows = host_to_device(
+                        spill_pools[ds_i].rows(b.frames, k), device)
+                    out = pooled_step(segment, rows,
+                                      b.as_torch(device=device), generator)
+                    log(it, out, model, optimizer)
+                it += 1
     else:
         def producer():
             for it, (ds_i, frames) in enumerate(schedule):

@@ -17,6 +17,7 @@ decay.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Callable
 
@@ -35,12 +36,18 @@ class ClippedSGD(torch.optim.SGD):
       when the global norm reaches ``clip_norm`` (``clip_grad_norm_``
       would add 1e-6 to the norm). It is decided on the device, so it never
       waits for the card.
-    * ``torch.optim.SGD`` with momentum keeps ``trace = g + momentum *
-      trace`` from a zero trace (its first buffer is the gradient itself)
-      and subtracts ``lr * trace``, as ``optax.sgd`` does.
+    * The momentum trace is ``trace = g + momentum * trace`` from a zero
+      trace, and the update ``p + (-lr) * trace``, as ``optax.sgd`` and
+      ``optax.apply_updates`` compute them (rounded once, as XLA fuses
+      them).
     * A callable ``lr`` is a schedule of ``count``, the number of updates
-      done before this one (optax's count), set on every param group
-      before each update.
+      done before this one (optax's count).
+    * The rate is a device scalar, ``neg_lr`` (-lr, in the parameters'
+      dtype), written before each update (``write_rate``), so an update
+      captured in a CUDA graph reads the rate of each replay
+      (``train/device_data.py``). Inside :meth:`capturing` a step records
+      only the device work; the caller writes each replay's rate and
+      advances ``count``.
     """
 
     def __init__(self, params, lr: float | Callable, momentum: float = 0.9,
@@ -50,23 +57,64 @@ class ClippedSGD(torch.optim.SGD):
                          else lr, momentum=momentum)
         self.clip_norm = clip_norm
         self.count = 0
+        self.neg_lr = None
+        self._written = None
+        self._capturing = False
+
+    def rate(self) -> float:
+        """The rate of the next update."""
+        return (self.schedule(self.count) if self.schedule is not None
+                else self.param_groups[0]["lr"])
+
+    @torch.no_grad()
+    def write_rate(self) -> None:
+        """Write the next update's rate into ``neg_lr`` (a fill on the
+        device, made only when the rate changes)."""
+        rate = self.rate()
+        if self.neg_lr is None:
+            p = self.param_groups[0]["params"][0]
+            self.neg_lr = torch.zeros((), dtype=p.dtype, device=p.device)
+        if rate != self._written:
+            self.neg_lr.fill_(-rate)
+            self._written = rate
+        for group in self.param_groups:
+            group["lr"] = rate
+
+    @contextlib.contextmanager
+    def capturing(self):
+        """While a CUDA graph captures an update."""
+        self._capturing = True
+        try:
+            yield
+        finally:
+            self._capturing = False
 
     @torch.no_grad()
     def step(self, closure=None):
         if closure is not None:
             raise ValueError("ClippedSGD takes no closure")
+        if not self._capturing:
+            self.write_rate()
+        params = [p for group in self.param_groups for p in group["params"]
+                  if p.grad is not None]
+        grads = [p.grad for p in params]
         if self.clip_norm is not None:
-            grads = [p.grad for group in self.param_groups
-                     for p in group["params"] if p.grad is not None]
             norm = torch.sqrt(sum(torch.sum(torch.square(g)) for g in grads))
             keep = norm < self.clip_norm
             for g in grads:
                 g.copy_(torch.where(keep, g, g / norm * self.clip_norm))
-        if self.schedule is not None:
-            for group in self.param_groups:
-                group["lr"] = self.schedule(self.count)
-        super().step()
-        self.count += 1
+        traces = []
+        for p in params:
+            state = self.state[p]
+            if state.get("momentum_buffer") is None:
+                state["momentum_buffer"] = torch.zeros_like(p)
+            traces.append(state["momentum_buffer"])
+        torch._foreach_mul_(traces, self.param_groups[0]["momentum"])
+        torch._foreach_add_(traces, grads)
+        # one rounding, p + (-lr) * trace, as XLA fuses optax's update
+        torch._foreach_addcmul_(params, traces, [self.neg_lr] * len(params))
+        if not self._capturing:
+            self.count += 1
 
 
 def make_optimizer(params, lr: float | Callable, momentum: float = 0.9,

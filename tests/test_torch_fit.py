@@ -23,7 +23,9 @@ both:
   tensor's largest value, and agree with the JAX package's pooled runs
   within the tolerances above;
 * the options of later slices raise, naming their ROADMAP item, and the
-  reference's own fallbacks warn as it does.
+  reference's own fallbacks warn as it does (the spill tier, the
+  superstep and the device flow have their own files:
+  ``tests/test_torch_{spill,superstep,flow_device}.py``).
 """
 
 import contextlib
@@ -286,7 +288,7 @@ def test_pooled_augmented_runs_on_the_pools(tiny_resnet, base_project,
 @pytest.mark.parametrize("kw,item", [
     (dict(data_parallel=True), "item 16"),
     (dict(data_parallel=2), "item 16"),
-    (dict(scan_iters=4), "item 12b"),
+    (dict(compute_dtype=torch.bfloat16), "item 12b"),
     (dict(compute_dtype="bfloat16"), "item 12b"),
 ])
 def test_fit_dlc_raises_for_later_slices(tiny_resnet, base_project, work,
@@ -300,8 +302,8 @@ def test_fit_dlc_raises_for_later_slices(tiny_resnet, base_project, work,
 @pytest.mark.parametrize("kw,item", [
     (dict(data_parallel=True), "item 16"),
     (dict(windows_per_device=2), "item 16"),
-    (dict(scan_iters=20), "item 12b"),
-    (dict(wt=1.0, device_flow=True), "item 13"),
+    (dict(compute_dtype="bfloat16"), "item 12b"),
+    (dict(windows_per_device=4, wt=1.0, device_flow=True), "item 16"),
 ])
 def test_fit_dgp_raises_for_later_slices(tiny_resnet, base_project, work,
                                          kw, item):
@@ -313,16 +315,20 @@ def test_fit_dgp_raises_for_later_slices(tiny_resnet, base_project, work,
 
 @pytest.mark.parametrize("device_data", [None, True])
 def test_fit_dgp_raises_where_the_reference_spills(
-        tiny_resnet, base_project, work, monkeypatch, device_data):
-    """Frame pools over the budget: the reference rotates segments of them
-    (item 12b); the message names the host feed."""
+        tiny_resnet, base_project, work, monkeypatch, capsys, device_data):
+    """Frame pools over the budget rotate through the card in segments
+    (``tests/test_torch_spill.py``); where one segment cannot hold a
+    window, the reference's plan raises and fit_dgp warns and feeds from
+    the host, as the JAX package does."""
     monkeypatch.setattr(dd, "DEFAULT_POOL_BUDGET_BYTES", 1000)
     root = project_copy(base_project, work / "p")
-    with pytest.raises(NotImplementedError,
-                       match="item 12b.*device_data=False"):
-        fit.fit_dgp_labeledonly(snapshot=WARM, dlcpath=root, maxiters=1,
-                                nepoch=1, device_data=device_data,
-                                device="cpu")
+    fit.fit_dgp_labeledonly(snapshot=WARM, dlcpath=root, maxiters=2,
+                            displayiters=1, nepoch=1,
+                            device_data=device_data, device="cpu")
+    out = capsys.readouterr().out
+    assert "segment budget" in out and "falling back to host batches" in out
+    assert ("using rotating segments" in out) == bool(device_data)
+    assert np.isfinite([v for _, v in logged_losses(root)]).all()
 
 
 def test_reference_fallbacks_warn_and_train(tiny_resnet, base_project,

@@ -58,6 +58,7 @@ def test_port_imports_without_jax():
     assert res.returncode == 0, res.stderr
     assert res.stdout.startswith("ok")
     assert len(port_modules()) >= 20
+    assert "deepgraphpose_tpu_torch.ops.flow_device" in port_modules()
 
 
 def test_port_imports_without_tensorflow():
@@ -541,3 +542,48 @@ def test_augment_batch_on_card_matches_cpu(cuda_device, shape, seed):
     errors, ok = smoke_helpers().augment_card_vs_cpu(cuda_device, shape,
                                                      seed)
     assert ok, errors
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,shift", [((3, 187, 209), (3, 1)),
+                                         ((11, 747, 832), (5, -2))])
+def test_flow_device_on_card_matches_cpu(cuda_device, shape, shift):
+    """The Lucas-Kanade flow of a moving texture on the card against the
+    CPU: within twice the CPU float32 run's distance from the CPU float64
+    run, or 1e-5 of the largest magnitude (chip_smoke's fit check)."""
+    t, h, w = shape
+    rng = np.random.default_rng(sum(shape))
+    coarse = rng.uniform(0, 255, (1, 1, h // 8 + 16, w // 8 + 16))
+    tex = torch.nn.functional.interpolate(
+        torch.from_numpy(coarse), scale_factor=8,
+        mode="bicubic")[0, 0].clamp(0, 255).to(torch.uint8)
+    frames = torch.stack([
+        tex[64 + i * shift[1]:64 + i * shift[1] + h,
+            64 + i * shift[0]:64 + i * shift[0] + w] for i in range(t)])
+    frames = frames[..., None].expand(t, h, w, 3).contiguous()
+    errors = smoke_helpers().flow_card_vs_cpu(frames.to(cuda_device))
+    assert errors["ok"], errors
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("aug,bn_train", [(True, False), (False, True)],
+                         ids=["augmented", "bn_train"])
+def test_superstep_graph_matches_eager(cuda_device, small_fit_project, aug,
+                                       bn_train):
+    """Three pooled step-2 updates as one superstep dispatch (a warm-up
+    update, then replays of a CUDA graph of the update) against three
+    eager ones, from one snapshot and generator seed: parameters and loss
+    terms within 1e-6 (a replay runs the eager update's kernels, so the
+    reading is expected to be 0), the augmentation's draws replayed from
+    the generator, one decode launch an update counted through the
+    replays."""
+    from deepgraphpose_tpu_torch.ops.augment_device import DeviceAugmentConfig
+
+    smoke, root = small_fit_project
+    errors = smoke.superstep_vs_eager(
+        root, cuda_device, "snapshot-step1-final--0", k=3,
+        aug_cfg=DeviceAugmentConfig.reference() if aug else None,
+        bn_train=bn_train)
+    assert errors["param_rel"] <= 1e-6, errors
+    assert errors["loss_rel"] <= 1e-6, errors
+    assert errors["decode_launches"] == [3, 3], errors
