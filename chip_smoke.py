@@ -53,6 +53,15 @@ last line is then never printed:
    the plain version on that conv's own input: int32 exact, the call's
    own output within 1 bf16 ulp or +-1 on at most 1e-4 of the int8
    values;
+10b. mobilenet: mobilenet_v2_1.0 at full width and depth, as phases 3,
+   4 and 7-9 for ResNet-50: ``mobilenet_f32`` (4 frames, card logits
+   against the CPU, TF32 off), ``mobilenet_full_frame`` (bf16, b=128,
+   1024 frames: frames/s, decode launches), ``mobilenet_quantize``,
+   ``mobilenet_int8_full_frame`` (every conv checked as above: the stem
+   on ``conv_int8`` with ReLU6 and TF SAME's split pads, the 1x1s on
+   ``mm_tiled`` with ReLU6, the first expand's 1.91e9 outputs; frames/s,
+   logits against f32), ``mobilenet_int8_checks`` and
+   ``mobilenet_int8_conv`` (each distinct int8 conv timed);
 11. train_parity: one DGP step-2 update of ResNet-50 (3 frames of
     128x160, a limb clique, wt > 0, seeded flow) from one init and batch,
     frozen and trainable batch-norm, TF32 off: on the card in float32, on
@@ -85,7 +94,11 @@ last line is then never printed:
     seconds and one segment's copy time), and fit_dlc and fit_dgp with
     scan_iters=11 (on the card: CUDA graph replays) beside their eager
     twins under deterministic cuDNN (final parameters within 1e-5 of each
-    tensor's largest value); per run steps/s and frames/s between the loss
+    tensor's largest value); fit_dgp(compute_dtype="bfloat16") beside the
+    float32 fit_dgp (``fit_bf16_vs_f32``: steps/s, peak memory, losses);
+    mobilenet_v2_1.0's fit_dlc -> fit_dgp_labeledonly -> fit_dgp on a
+    copy of the project (from the seeded init, trainable batch-norm in
+    step 0); per run steps/s and frames/s between the loss
     reads at iteration 2 and the last (with the superstep: between its
     first and last dispatch ends; snapshot writes taken out), peak memory,
     the feed, losses (finite, falling), the snapshots written and left
@@ -100,7 +113,9 @@ last line is then never printed:
     CPU float64 run, or 1e-5 of the largest value), skip-if-final, and
     ``estimate_pose`` from the step-2 final snapshot;
 14. profile: where the device time goes, from torch.profiler over 3
-    full-frame batches, 3 tracked-crop steps, 3 int8 full-frame batches,
+    full-frame batches, 3 MobileNetV2 full-frame batches (its depthwise
+    convs a class of their own), 3 tracked-crop steps, 3 int8 full-frame
+    batches,
     3 host-fed step-2 train steps, 3 pooled, augmented step-2 steps, 3
     superstep dispatches of 11 such updates (graph replays), and 3 pooled
     step-2 steps with the flow made on the card (device ms per update by
@@ -111,7 +126,7 @@ last line is then never printed:
 
 Every kernel wrapper counts its launches (a superstep adds each graph
 replay's captured launches); the counts are set to 0 just before each
-main-path run (phases 4, 5, 8, 10, 12 and each fit run) and read just
+main-path run (phases 4, 5, 8, 10, 10b, 12 and each fit run) and read just
 after, and every kernel that the path runs must show launches > 0. The
 weights are random, from a seeded torch.Generator; nothing is read from
 disk but the repository's own sources and the files the fit phase
@@ -158,6 +173,7 @@ TRAIN_PARITY_FRAMES = 3
 # card vs CPU float32 logits, relative to the largest logit: both sum the
 # convolutions in float32, in different orders and algorithms
 LOGIT_RTOL = 1e-3
+MOBILE_NET = "mobilenet_v2_1.0"   # the second backbone family, full width
 
 
 def emit(obj) -> None:
@@ -395,7 +411,7 @@ def phase_kernel(cfg, device):
     return out
 
 
-def phase_f32(cfg, device, generator):
+def phase_f32(cfg, device, generator, name: str = "f32"):
     import numpy as np
     import torch
 
@@ -429,7 +445,8 @@ def phase_f32(cfg, device, generator):
                                         gauss_len=cfg.gauss_len)
     scale = pred_cpu.abs().max().item()
     logit_rel = (pred[:1].cpu() - pred_cpu).abs().max().item() / scale
-    out = {"phase": "f32", "frames": 4, "hw": list(HW),
+    out = {"phase": name, "net_type": cfg.net_type, "frames": 4,
+           "hw": list(HW),
            "scoremap": list(pred.shape[1:3]), "max_px_diff": px,
            "max_lik_diff": e_lik, "cpu_ref_logit_rel": logit_rel,
            "logit_absmax": scale,
@@ -438,12 +455,13 @@ def phase_f32(cfg, device, generator):
     emit(out)
     if not (np.isfinite(px) and px <= MU_TOL * cfg.stride and e_lik <= LIK_TOL
             and np.isfinite(logit_rel) and logit_rel <= LOGIT_RTOL):
-        raise AssertionError(f"f32 forward: kernel decode vs plain, or card "
-                             f"vs CPU logits, out of tolerance: {out}")
+        raise AssertionError(f"{name} forward: kernel decode vs plain, or "
+                             f"card vs CPU logits, out of tolerance: {out}")
     return model, images, mu_k, pred
 
 
-def phase_full_frame(cfg, device, model_f32, images4, mu_f32, pred_f32):
+def phase_full_frame(cfg, device, model_f32, images4, mu_f32, pred_f32,
+                     name: str = "full_frame"):
     import numpy as np
     import torch
 
@@ -480,7 +498,8 @@ def phase_full_frame(cfg, device, model_f32, images4, mu_f32, pred_f32):
     ok = (tuple(mu.shape) == (BATCH, NUM_JOINTS, 2)
           and bool(torch.isfinite(mu).all()) and bool(torch.isfinite(lik).all())
           and bool(((lik >= 0) & (lik <= 1)).all()))
-    out = {"phase": "full_frame", "dtype": "bfloat16", "batch": BATCH,
+    out = {"phase": name, "net_type": cfg.net_type, "dtype": "bfloat16",
+           "batch": BATCH,
            "hw": list(HW), "frames": FRAMES, "seconds": dt,
            "frames_per_s": FRAMES / dt, "launches": launches,
            "bf16_vs_f32_px": bf16_px,
@@ -489,7 +508,7 @@ def phase_full_frame(cfg, device, model_f32, images4, mu_f32, pred_f32):
     emit(out)
     if (launches <= 0 or not ok or not np.isfinite(bf16_px["max"])
             or not np.isfinite(bf16_logit_rel)):
-        raise AssertionError(f"full-frame path failed: {out}")
+        raise AssertionError(f"{name} path failed: {out}")
     return model, launches, mu_bf16
 
 
@@ -731,14 +750,17 @@ def checked_convs(qmodel, path: str, calls: list):
             del want_acc, want, diff
         del acc
         share = differing / y.numel()
+        dense = k == 1 and stride == 1 and not any(
+            sum(plain.side_pads(pad), ()))
         entry = {
             "path": path, "site": site,
-            "route": ("mm_tiled" if k == 1 and stride == 1 and pad == 0
-                      else "conv_int8"),
+            "route": "mm_tiled" if dense else "conv_int8",
             "k": k, "cin": x.shape[-1], "cout": w.shape[1], "stride": stride,
             "rate": rate, "batch": x.shape[0], "in_hw": list(x.shape[1:3]),
             "out_hw": list(y.shape[1:3]), "in": str(x.dtype).split(".")[-1],
-            "out": kind, "relu": bool(relu), "acc_err": acc_err,
+            "out": kind, "relu": int(relu),
+            "pad": [list(p) for p in plain.side_pads(pad)],
+            "acc_err": acc_err,
             "differing_share": share,
             "replay": (k, stride, rate, pad, relu, out, in_scale)}
         calls.append(entry)
@@ -766,7 +788,7 @@ def check_summary(calls) -> dict:
                                                 for c in calls)}
 
 
-def phase_int8_conv(device, qmodel, calls) -> dict:
+def phase_int8_conv(device, qmodel, calls, name: str = "int8_conv") -> dict:
     """Each distinct conv of one int8 full-frame batch (the calls that
     ``checked_convs`` recorded) timed at its shape on seeded inputs of its
     type, with its launches per batch, its bound, the plain version's
@@ -846,7 +868,8 @@ def phase_int8_conv(device, qmodel, calls) -> dict:
         out["launches_per_batch"] = sum(s["launches_per_batch"] for s in mine)
         return out
 
-    out = {"phase": "int8_conv", "batch": BATCH, "hw": list(HW),
+    out = {"phase": name, "net_type": qmodel.cfg.net_type, "batch": BATCH,
+           "hw": list(HW),
            "ring_stages": gk.ring_stages(),
            "per_batch": {route: per_batch(route)
                          for route in ("mm_tiled", "conv_int8")},
@@ -898,7 +921,8 @@ def phase_int8_full_frame(cfg, device, qmodel, name, images4, pred_f32,
     ok = (tuple(mu.shape) == (BATCH, NUM_JOINTS, 2)
           and bool(torch.isfinite(mu).all()) and bool(torch.isfinite(lik).all())
           and bool(((lik >= 0) & (lik <= 1)).all()))
-    out = {"phase": name, "dtype": "int8 backbone, bfloat16 heads",
+    out = {"phase": name, "net_type": cfg.net_type,
+           "dtype": "int8 backbone, bfloat16 heads",
            "residual_int8": qmodel.residual_int8, "batch": BATCH,
            "hw": list(HW), "frames": FRAMES, "seconds": dt,
            "frames_per_s": FRAMES / dt, "launches": launches,
@@ -949,6 +973,63 @@ def phase_int8_tracked_crop(cfg, device, qmodel):
     if min(launches.values()) <= 0 or not ok or CROP_HW not in stem_hw:
         raise AssertionError(f"int8 tracked-crop path failed: {out}")
     return out, calls
+
+
+def phase_mobilenet(device) -> dict:
+    """MOBILE_NET's inference paths, as ResNet-50's: f32 (card against
+    CPU, TF32 off), bf16 full frame, quantize_model, the int8 full frame
+    with every conv checked (the stem on ``conv_int8`` with ReLU6 and TF
+    SAME's split pads, the 1x1s on ``mm_tiled`` with ReLU6, MobileNetV2's
+    first expand writing 1.9e9 outputs at batch 128), and each distinct
+    int8 conv timed."""
+    import torch
+
+    from deepgraphpose_tpu_torch.core.config import PoseConfig
+    from deepgraphpose_tpu_torch.models.mobilenet import same_pads
+    from deepgraphpose_tpu_torch.ops.kernels import int8_gemm_kernel as gk
+
+    cfg = PoseConfig(net_type=MOBILE_NET, num_joints=NUM_JOINTS,
+                     compute_dtype="bfloat16", infer_batch_size=BATCH)
+    generator = torch.Generator().manual_seed(SEED + 8)
+    model_f32, images4, mu_f32, pred_f32 = phase_f32(
+        cfg, device, generator, "mobilenet_f32")
+    model, full_launches, mu_bf16 = phase_full_frame(
+        cfg, device, model_f32, images4, mu_f32, pred_f32,
+        "mobilenet_full_frame")
+    qmodel, seconds = phase_quantize(cfg, model_f32, residual=False)
+    emit({"phase": "mobilenet_quantize", "calib_frames": CALIB_FRAMES,
+          "hw": list(HW), "seconds": seconds, "sites": len(qmodel.sites),
+          "depthwise_sites": len(qmodel.dw)})
+    path, calls = phase_int8_full_frame(
+        cfg, device, qmodel, "mobilenet_int8_full_frame", images4, pred_f32,
+        mu_f32, mu_bf16)
+    stem_pad = [list(same_pads(3, 2, 1, n)) for n in HW]
+    stem = [c for c in calls if c["site"] == "conv_stem"]
+    relu6 = {r: sum(c["route"] == r and c["relu"] == gk.RELU6 for c in calls)
+             for r in ("mm_tiled", "conv_int8")}
+    def outputs(c):
+        return c["batch"] * c["out_hw"][0] * c["out_hw"][1] * c["cout"]
+
+    largest = max(calls, key=outputs)
+    out = {"phase": "mobilenet_int8_checks", "relu6_calls": relu6,
+           "stem": {k: stem[0][k] for k in ("route", "relu", "pad", "k",
+                                            "cin", "in_hw", "out_hw")}
+           if stem else None,
+           "largest_site": {"site": largest["site"],
+                            "outputs": outputs(largest)},
+           "sites_checked": len({c["site"] for c in calls}),
+           "sites": len(qmodel.sites)}
+    emit(out)
+    if (not stem or stem[0]["route"] != "conv_int8"
+            or stem[0]["relu"] != gk.RELU6 or stem[0]["pad"] != stem_pad
+            or min(relu6.values()) <= 0
+            or out["sites_checked"] != len(qmodel.sites)):
+        raise AssertionError(f"MobileNetV2 int8 convs not all checked: {out}")
+    conv = phase_int8_conv(device, qmodel, calls, "mobilenet_int8_conv")
+    del model_f32, pred_f32
+    torch.cuda.empty_cache()
+    return {"cfg": cfg, "model": model, "full_launches": full_launches,
+            "int8_path": path, "calls": calls, "conv": conv}
 
 
 class BlobVideo:
@@ -1452,7 +1533,7 @@ def fit_run(name: str, fn, kwargs: dict, frames_per_update: int,
         wall = time.perf_counter() - t0
     launches = read_launches()
     print(printed.getvalue(), file=sys.stderr, end="")
-    _, _, train_dir = resolve_project(kwargs["dlcpath"])
+    _, pose_cfg, train_dir = resolve_project(kwargs["dlcpath"])
     step = int(re.search(r"snapshot-step(\d+)", final.name).group(1))
     debug = kwargs.get("debug", "")
     _, last_it = checkpoint.latest_intermediate_snapshot(train_dir, step,
@@ -1468,8 +1549,9 @@ def fit_run(name: str, fn, kwargs: dict, frames_per_update: int,
     pool = re.search(r"\((\d+) MB in device memory\)", text)
     spill = re.search(r"over (\d+) segments, <= 2 x (\d+) MB resident", text)
     scan = re.search(r"scan superstep K=(\d+)", text)
-    out = {"phase": "fit", "run": name, "model": "resnet_50", "hw": list(HW),
-           "dtype": "float32", "updates": updates, "wall_s": wall,
+    out = {"phase": "fit", "run": name, "model": pose_cfg.net_type,
+           "hw": list(HW), "dtype": kwargs.get("compute_dtype", "float32"),
+           "updates": updates, "wall_s": wall,
            "timed_iterations": [it_a + 1, it_b], "timed_s": seconds,
            "snapshot_s_excluded": saving,
            "steps_per_s": (it_b - it_a) / seconds,
@@ -1500,14 +1582,16 @@ def fit_run(name: str, fn, kwargs: dict, frames_per_update: int,
     return out
 
 
-def fit_window(root, device, snapshot: str, wt: float = 0.0) -> dict:
+def fit_window(root, device, snapshot: str, wt: float = 0.0,
+               dtype=None) -> dict:
     """One step-2 window of the fit project (batch TRAIN_BATCH, with a
     labeled frame, ``wt`` for the temporal clique): its ``DGPBatch`` as
     the host feed makes it (``batch``, frames and flow included) and as
     the pooled fit loop makes it (``pool_batch``: labels and masks only),
     its FramePool rows on the card, the pool, the objective's parameters,
     and a function that makes a model loaded from ``snapshot`` (in the
-    project's train dir) and its optimizer."""
+    project's train dir; float32 weights computing in ``dtype``, float32
+    by default) and its optimizer."""
     import numpy as np
     import torch
 
@@ -1537,7 +1621,8 @@ def fit_window(root, device, snapshot: str, wt: float = 0.0) -> dict:
     snap = train_dir / f"{snapshot}.ckpt"
 
     def model_and_optimizer():
-        model = PoseModel(cfg)
+        model = PoseModel(cfg, dtype=dtype or torch.float32,
+                          param_dtype=torch.float32)
         checkpoint.restore_backbone_and_heads(model, snap)
         model = model.to(device, memory_format=torch.channels_last)
         return model, steps.make_optimizer(model.parameters(), cfg.lr,
@@ -1604,18 +1689,20 @@ def scan_window(root, device, snapshot: str, aug_cfg=None, k: int = SCAN_K):
 
 
 def superstep_vs_eager(root, device, snapshot: str, k: int = 3,
-                       aug_cfg=None, bn_train: bool = False) -> dict:
+                       aug_cfg=None, bn_train: bool = False,
+                       dtype=None) -> dict:
     """k pooled step-2 updates on :func:`fit_window`'s window from one
     snapshot and generator seed, cuDNN deterministic: eagerly, and as one
     superstep dispatch (on the card: a warm-up update, then replays of a
     CUDA graph). The largest loss-term deviation relative to the term, the
     largest parameter or buffer deviation relative to its tensor's largest
-    value, and each way's decode launches."""
+    value, and each way's decode launches. ``dtype``: the models' compute
+    dtype (float32 weights)."""
     import torch
 
     from deepgraphpose_tpu_torch.train import device_data
 
-    win = fit_window(root, device, snapshot)
+    win = fit_window(root, device, snapshot, dtype=dtype)
     pool = win["pool"]
     got = {}
     for way in ("eager", "superstep"):
@@ -1815,6 +1902,34 @@ def scan_pair(name: str, fn, kwargs: dict, twins: tuple,
     return runs
 
 
+def retarget_project(root, dest, net_type: str) -> Path:
+    """A copy of the fit project (before any run) whose pose_cfg names
+    ``net_type``."""
+    import shutil
+
+    from deepgraphpose_tpu_torch.core.paths import resolve_project
+
+    shutil.copytree(root, dest)
+    _, cfg, train_dir = resolve_project(dest)
+    cfg.net_type = net_type
+    cfg.to_yaml(train_dir / "pose_cfg.yaml")
+    return Path(dest)
+
+
+def mobilenet_fit_runs(common: dict, step2: dict, root) -> list:
+    """The chain fit_dlc -> fit_dgp_labeledonly -> fit_dgp(batch_size=10)
+    of MOBILE_NET on the fit project's copy: fit_dlc from the seeded init
+    (no pretrained file: trainable batch-norm), each later step from the
+    one before, frame pools and on-card augmentation as for ResNet-50."""
+    from deepgraphpose_tpu_torch.train import fit
+
+    kw, kw2 = dict(common, dlcpath=root), dict(step2, dlcpath=root)
+    return [fit_run("mobilenet_fit_dlc", fit.fit_dlc, kw, 1, 0),
+            fit_run("mobilenet_fit_dgp_labeledonly", fit.fit_dgp_labeledonly,
+                    kw, 1, 1),
+            fit_run("mobilenet_fit_dgp", fit.fit_dgp, kw2, TRAIN_BATCH, 1)]
+
+
 def phase_fit(device, workdir) -> tuple[list, dict]:
     """The training entry points with their defaults on the fit project at
     747x832: fit_dlc (labeled pool, scale jitter on the card),
@@ -1836,6 +1951,8 @@ def phase_fit(device, workdir) -> tuple[list, dict]:
 
     t0 = time.perf_counter()
     root = make_fit_project(Path(workdir) / "fit_project")
+    mobile_root = retarget_project(root, Path(workdir) / "fit_mobilenet",
+                                   MOBILE_NET)
     emit({"phase": "fit_project", "hw": list(HW), "frames": FIT_FRAMES,
           "labeled": FIT_LABELED, "joints": NUM_JOINTS,
           "seconds": time.perf_counter() - t0})
@@ -1853,7 +1970,11 @@ def phase_fit(device, workdir) -> tuple[list, dict]:
             fit_run("fit_dgp_flow", fit.fit_dgp,
                     dict(step2, wt=1.0, device_flow=True, debug="_flow"),
                     TRAIN_BATCH, 1),
-            spill_run(root, common, device)]
+            spill_run(root, common, device),
+            fit_run("fit_dgp_bf16", fit.fit_dgp,
+                    dict(step2, compute_dtype="bfloat16", debug="_bf16"),
+                    TRAIN_BATCH, 1)]
+    runs += mobilenet_fit_runs(common, step2, mobile_root)
     runs += scan_pair("fit_dlc_scan", fit.fit_dlc, common,
                       (dict(step=10), dict(step=11)), 1, 0, root)
     runs += scan_pair("fit_dgp_scan", fit.fit_dgp, step2,
@@ -1862,11 +1983,22 @@ def phase_fit(device, workdir) -> tuple[list, dict]:
     feeds = {"fit_dlc": "device pool", "fit_dgp_labeledonly": "device pool",
              "fit_dgp": "device pool", "fit_dgp_wt": "host",
              "fit_dgp_flow": "device pool", "fit_dgp_spill": "segments"}
+    by_run = {r["run"]: r for r in runs}
     if any(r["feed"] != feeds.get(r["run"], "device pool") for r in runs) \
-            or not next(r for r in runs if r["run"] == "fit_dgp_flow"
-                        )["lk_flow"] \
-            or runs[5]["segments"] < SPILL_MIN_SEGMENTS:
+            or not by_run["fit_dgp_flow"]["lk_flow"] \
+            or by_run["fit_dgp_spill"]["segments"] < SPILL_MIN_SEGMENTS:
         raise AssertionError(f"fit runs took the wrong feeds: {runs}")
+    f32, bf16 = by_run["fit_dgp"], by_run["fit_dgp_bf16"]
+    emit({"phase": "fit_bf16_vs_f32", "run": "fit_dgp",
+          "steps_per_s": {"float32": f32["steps_per_s"],
+                          "bfloat16": bf16["steps_per_s"]},
+          "speedup": bf16["steps_per_s"] / f32["steps_per_s"],
+          "peak_mem_gb": {"float32": f32["peak_mem_gb"],
+                          "bfloat16": bf16["peak_mem_gb"]},
+          "losses_first_last": {"float32": [f32["first_loss"],
+                                            f32["last_loss"]],
+                                "bfloat16": [bf16["first_loss"],
+                                             bf16["last_loss"]]}})
 
     feed_errors, feed_ok = pooled_vs_host(root, device,
                                           "snapshot-step1-final--0")
@@ -1930,6 +2062,11 @@ def kernel_class(name: str) -> str:
     return "other"
 
 
+# profiler ranges whose kernels form a class of their own
+SPAN_CLASSES = {"flow_magnitude_device": "flow",
+                "depthwise_conv": "depthwise"}
+
+
 def busy_us(intervals) -> float:
     """Length of the union of (start, end) intervals."""
     total, cur_start, cur_end = 0.0, None, None
@@ -1950,8 +2087,9 @@ def profile_path(name: str, step, batches: int, updates: int = 1) -> dict:
     batch (per update, where a call runs ``updates`` of them), the
     device's busy share of that wall time (union of kernel intervals),
     device ms by kernel class, kernels and host launch calls (kernel and
-    graph launches, copies and fills) a batch. Kernels that run inside the
-    ``flow_magnitude_device`` range form the class ``flow``."""
+    graph launches, copies and fills) a batch. Kernels that run inside a
+    range of SPAN_CLASSES form that range's class (the device flow, the
+    depthwise convs)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1973,10 +2111,10 @@ def profile_path(name: str, step, batches: int, updates: int = 1) -> dict:
                and not getattr(e, "is_user_annotation", False)]
     if not kernels:
         raise RuntimeError("the profiler recorded no device kernels")
-    flow_spans = [(e.time_range.start, e.time_range.end) for e in events
-                  if e.device_type == DeviceType.CUDA
-                  and getattr(e, "is_user_annotation", False)
-                  and e.name == "flow_magnitude_device"]
+    spans = [(e.time_range.start, e.time_range.end, SPAN_CLASSES[e.name])
+             for e in events if e.device_type == DeviceType.CUDA
+             and getattr(e, "is_user_annotation", False)
+             and e.name in SPAN_CLASSES]
     launch_calls = [e for e in events if e.device_type == DeviceType.CPU
                     and re.match(r"cu(da)?(LaunchKernel|GraphLaunch|Memcpy"
                                  r"|Memset|LaunchCooperative)", e.name)]
@@ -1985,9 +2123,8 @@ def profile_path(name: str, step, batches: int, updates: int = 1) -> dict:
     by_name: dict[str, float] = {}
     for e in kernels:
         us = e.time_range.end - e.time_range.start
-        label = ("flow" if any(a <= e.time_range.start < b
-                               for a, b in flow_spans)
-                 else kernel_class(e.name))
+        label = next((c for a, b, c in spans
+                      if a <= e.time_range.start < b), kernel_class(e.name))
         by_class[label] = by_class.get(label, 0.0) + us
         by_name[e.name] = by_name.get(e.name, 0.0) + us
     busy = busy_us((e.time_range.start, e.time_range.end) for e in kernels)
@@ -2009,14 +2146,16 @@ def profile_path(name: str, step, batches: int, updates: int = 1) -> dict:
 
 
 def phase_profile(cfg, device, model, qmodel, train_step2, fit_steps: dict,
-                  batches: int = 3) -> None:
+                  mobile: tuple, batches: int = 3) -> None:
     """Where the device time goes: full-frame batches and tracked-crop
     steps (the crop step alone, at a fixed center) of the bf16 model,
     full-frame batches of the int8 model, and DGP step-2 train steps:
     host-fed (``train_step2``: the step and its inputs), and the fit
     phase's ``fit_steps`` (from the frame pool with the reference
     augmentation on the card, eagerly and as the superstep's graph
-    replays; with the flow made on the card)."""
+    replays; with the flow made on the card); and ``mobile`` (its config
+    and bf16 model): MOBILE_NET's full-frame batches, its depthwise convs
+    a class of their own."""
     import torch
 
     from deepgraphpose_tpu_torch.infer.dynamic import make_crop_infer_fn
@@ -2030,7 +2169,9 @@ def phase_profile(cfg, device, model, qmodel, train_step2, fit_steps: dict,
     center = (HW[0] / 2, HW[1] / 2)
     full_int8 = make_infer_fn(qmodel, cfg)
     train, inputs = train_step2
+    mobile_full = make_infer_fn(mobile[1], mobile[0])
     paths = [("full_frame", lambda: full(frames), 1),
+             ("mobilenet_full_frame", lambda: mobile_full(frames), 1),
              ("tracked_crop", lambda: crop(frames, center), 1),
              ("int8_full_frame", lambda: full_int8(frames), 1),
              ("train_step2", lambda: train(*inputs()), 1)]
@@ -2097,17 +2238,22 @@ def main() -> int:
     checks += calls
     del rmodel, model_f32, pred_f32
     torch.cuda.empty_cache()
+    mobile = phase_mobilenet(device)
+    int8_paths["mobilenet_int8_full_frame"] = mobile["int8_path"]
+    checks += mobile["calls"]
     phase_train_parity(device)
     train_lines, train_step2 = phase_train(device)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_fit_") as workdir:
         fit_lines, fit_steps = phase_fit(device, workdir)
-        phase_profile(cfg, device, model, qmodel, train_step2, fit_steps)
+        phase_profile(cfg, device, model, qmodel, train_step2, fit_steps,
+                      (mobile["cfg"], mobile["model"]))
 
     by_path = {name: path["launches"] for name, path in int8_paths.items()}
     by_path.update({line["phase"]: line["launches"] for line in train_lines})
     by_path.update({line["run"]: line["launches"] for line in fit_lines})
     decode_by_path = {"full_frame": full_launches,
                       "tracked_crop": crop_launches,
+                      "mobilenet_full_frame": mobile["full_launches"],
                       **{name: counts["softargmax_likelihood"]
                          for name, counts in by_path.items()}}
     main_shape = kern["shapes"][0]          # the full-frame maps
@@ -2145,6 +2291,8 @@ def main() -> int:
         "bf16": {k: mm["bf16"][k] for k in ("ms", "plain_ms", "bound_ms",
                                             "bound_by", "library_ms")},
         "conv_sites_per_batch": conv["per_batch"]["mm_tiled"],
+        "mobilenet_conv_sites_per_batch":
+            mobile["conv"]["per_batch"]["mm_tiled"],
     }, {
         "name": "conv_int8", "route": "cuda",
         "source": "deepgraphpose_tpu_torch/csrc/int8_gemm.cu",
@@ -2155,6 +2303,7 @@ def main() -> int:
         "unit": "per 128-frame batch: the sum over its sites' launches",
         **{k: conv_int8[k] for k in ("ms", "plain_ms", "bound_ms",
                                      "bound_by", "library_ms")},
+        "mobilenet_per_batch": mobile["conv"]["per_batch"]["conv_int8"],
     }]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

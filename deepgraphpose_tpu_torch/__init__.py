@@ -1,16 +1,18 @@
 """deepgraphpose_tpu_torch — the PyTorch/CUDA port of deepgraphpose_tpu.
 
 Runs DeepGraphPose full-video pose inference on an NVIDIA H100: a
-ResNet-v1 trunk with deconvolutional heads in PyTorch (cuDNN convs in
-``channels_last``), or its int8 form (``models/quant.py``) whose convs run
-on a tensor-core GEMM written for Hopper (``csrc/int8_gemm.cu``), and the
+ResNet-v1 or MobileNetV2 trunk with deconvolutional heads in PyTorch
+(cuDNN convs in ``channels_last``), or its int8 form (``models/quant.py``)
+whose dense convs run on a tensor-core GEMM written for Hopper
+(``csrc/int8_gemm.cu``), and the
 soft-argmax + likelihood decode as a CUDA kernel (``csrc/softargmax.cu``).
 It also trains: the DGP chain's entry points ``fit_dlc``,
 ``fit_dgp_labeledonly`` and ``fit_dgp`` (``train/fit.py``) feed their
 steps (``train/steps.py``) from frame pools on the card with on-card
 augmentation (``train/device_data.py``) or from batches assembled on the
 host (``data/batcher.py``), decode the objective's maps on the same
-kernel, and write snapshots in the JAX package's format. The module
+kernel, and write snapshots in the JAX package's format; in float32 or in
+bfloat16 mixed precision (float32 weights). The module
 layout and public names follow ``deepgraphpose_tpu``, which stays the
 reference; this package imports nothing of it, nor JAX. Entry points run on the card unless the caller
 passes ``device="cpu"``.

@@ -34,7 +34,9 @@ Weights bridge (:func:`state_dict_from_flax`, inverted by
 * ``FrozenBatchNorm``: ``params/{scale, bias}`` and
   ``batch_stats/{mean, var}`` keep their names;
 * the backbone subtree, auto-named by flax inside ``PoseModel``
-  (``ResNetV1_0``), becomes the port's ``backbone`` attribute.
+  (``ResNetV1_0`` or ``MobileNetV2_0``), becomes the port's ``backbone``
+  attribute. MobileNetV2's depthwise kernels, flax (3, 3, 1, C), map as
+  any ``nn.Conv`` kernel, to ``Conv2d.weight`` (C, 1, 3, 3).
 
 :func:`quant_state_from_flax` bridges the JAX package's int8 variables
 (``models/quant.py::quantize_model``) to the port's ``QuantizedPoseModel``.
@@ -56,8 +58,9 @@ from deepgraphpose_tpu_torch.core import paths as paths_lib
 
 CKPT_SUFFIX = ".ckpt"
 HEAD_NAMES = ("part_pred", "locref_pred", "intermediate_supervision")
-# flax's auto-name of the backbone module inside the JAX PoseModel
-BACKBONE_SCOPE = "ResNetV1_0"
+# flax's auto-names of the backbone module inside the JAX PoseModel
+RESNET_SCOPE = "ResNetV1_0"
+MOBILENET_SCOPE = "MobileNetV2_0"
 BN_STATS = ("mean", "var")
 MAX_CHUNK_BYTES = 2 ** 30         # flax.serialization.MAX_CHUNK_SIZE
 
@@ -210,17 +213,25 @@ def _torch_state(variables: dict, backbone: str | None = None) -> dict:
     return out
 
 
+def backbone_scope(keys) -> str:
+    """The JAX package's backbone scope for a port state's keys: a
+    MobileNetV2 has a ``conv_stem``, a ResNet none."""
+    mobile = any(k.startswith("backbone.conv_stem.") for k in keys)
+    return MOBILENET_SCOPE if mobile else RESNET_SCOPE
+
+
 def flax_from_state_dict(state: dict) -> dict:
     """A ``PoseModel`` state_dict -> the JAX package's ``{"params",
     "batch_stats"}`` tree of numpy arrays: the inverse of
     :func:`state_dict_from_flax`, bit for bit. A state of parameters alone
     (a momentum trace) gives a tree with ``params`` only."""
     out: dict = {}
+    scope = backbone_scope(state)
     for key, value in state.items():
         *mods, name = key.split(".")
         arr = value.detach().to("cpu", torch.float32)
         if mods[0] == "backbone":
-            mods[0] = BACKBONE_SCOPE
+            mods[0] = scope
         if name == "weight":
             if mods[0] in HEAD_NAMES:           # nn.ConvTranspose
                 arr = arr.flip(-2, -1).permute(2, 3, 0, 1)
@@ -242,9 +253,18 @@ def quant_state_from_flax(qvariables: dict) -> dict:
     Each site's int8 HWIO kernel becomes the GEMM kernel's (K = kh*kw*Cin,
     N = Cout) matrix; ``oscale`` and ``bias`` carry over as float32, and
     the calibrated input scale as a Python float (the site's extra state,
-    never a device tensor). The heads map as in :func:`state_dict_from_flax`.
+    never a device tensor). MobileNetV2's float depthwise sites
+    (``qvariables["dw"]``: folded (3, 3, 1, C) kernel ``w`` and bias
+    ``b``) become ``dw.<site>.weight`` (C, 1, 3, 3) and ``dw.<site>.bias``.
+    The heads map as in :func:`state_dict_from_flax`.
     """
     out = _torch_state({"params": qvariables["heads"]})
+    for site, wb in qvariables.get("dw", {}).items():
+        out[f"dw.{site}.weight"] = torch.from_numpy(
+            np.array(wb["w"], dtype=np.float32)).permute(3, 2, 0, 1
+                                                         ).contiguous()
+        out[f"dw.{site}.bias"] = torch.from_numpy(
+            np.array(wb["b"], dtype=np.float32))
     for site, w in qvariables["qw"].items():
         w = np.asarray(w)
         if w.dtype != np.int8 or w.ndim != 4:

@@ -23,14 +23,25 @@
 //                     device memory.
 //   conv_int8_launch  the A tile is gathered by im2col addressing from NHWC
 //                     int8 input x (B, H, W, Cin): kernel k x k, stride,
-//                     dilation rate, symmetric zero pad. Zero fill is exact
-//                     because the quantization is symmetric (zero point 0).
-//                     B is the HWIO weight flattened to (K = k*k*Cin, Cout),
-//                     given as its (Cout, K) transpose.
+//                     dilation rate, zero pads pad_h above and pad_w left of
+//                     the image; the caller's output size (OH, OW) sets the
+//                     pads below and right, so slim's symmetric pads and TF
+//                     SAME's (one more on the high side for a stride-2 conv
+//                     over an even side, MobileNetV2's stem) both address
+//                     here. Zero fill is exact because the quantization is
+//                     symmetric (zero point 0). B is the HWIO weight
+//                     flattened to (K = k*k*Cin, Cout), given as its (Cout,
+//                     K) transpose.
 // Epilogue (models/quant.py of the JAX package, conv_fn):
-//   y = float(acc) * oscale[n] + bias[n], optional ReLU, then
+//   y = float(acc) * oscale[n] + bias[n], then the activation `act`
+//   (0 none, 1 ReLU max(y, 0), 2 ReLU6 min(max(y, 0), 6): the ResNets' and
+//   MobileNetV2's), then
 //   out_mode 1: f32, 2: bf16 (round to nearest even),
 //   3: int8 clip(rint(y / s_next), -127, 127) (round half to even).
+// Index arithmetic: element offsets of A, of the image and of the output
+// are 64-bit (MobileNetV2's first expand at batch 128 writes M * N = 1.91e9
+// outputs, 12% below 2^31); M, N, K and per-image offsets stay 32-bit, and
+// the launch functions refuse shapes beyond them.
 // The multiply-add is one fused, once-rounded operation (__fmaf_rn): XLA's
 // CPU backend contracts the JAX package's `acc * oscale + bias` the same
 // way (it equals the fused result on every one of 10^6 random inputs, and
@@ -307,13 +318,13 @@ struct QuantA {
 };
 
 // A operand: the im2col view of NHWC int8 input; column k of row m is
-// x[b, oh*stride - pad + dy*rate, ow*stride - pad + dx*rate, c] with
+// x[b, oh*stride - pad_h + dy*rate, ow*stride - pad_w + dx*rate, c] with
 // k = (dy*ks + dx)*Cin + c (the HWIO weight flattened to (K, N)).
 struct ConvA {
   using Elem = int8_t;
   static constexpr bool kCopies = true;
   const int8_t* x;
-  int M, K, H, W, Cin, OH, OW, ks, stride, rate, pad;
+  int M, K, H, W, Cin, OH, OW, ks, stride, rate, pad_h, pad_w;
   struct Row {
     const int8_t* img;
     int ih0, iw0;
@@ -326,8 +337,8 @@ struct ConvA {
     const int rem = (int)(m - (long long)b * ohw);
     const int oh = rem / OW;
     const int ow = rem - oh * OW;
-    return {x + (long long)b * H * W * Cin, oh * stride - pad, ow * stride - pad,
-            true};
+    return {x + (long long)b * H * W * Cin, oh * stride - pad_h,
+            ow * stride - pad_w, true};
   }
   // Cin % 16 == 0: the 16 bytes at column k lie in one tap, contiguous;
   // nullptr where they are zero fill
@@ -369,11 +380,13 @@ struct ConvA {
   }
 };
 
+enum Act { kNone = 0, kRelu = 1, kRelu6 = 2 };
+
 struct Epilogue {
   const float* oscale;
   const float* bias;
   Scale next;
-  int relu;
+  int act;
 };
 
 __device__ __forceinline__ uint32_t bits(int v) { return (uint32_t)v; }
@@ -384,7 +397,8 @@ __device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
   return *reinterpret_cast<const uint32_t*>(&h);
 }
 
-// y = acc * oscale + bias (one rounding), then ReLU, for 8 columns.
+// y = acc * oscale + bias (one rounding), then the activation, for 8
+// columns.
 template <typename Acc>
 __device__ __forceinline__ void affine8(int n, int count, const Acc (&v)[8],
                                         const Epilogue& ep, float (&y)[8]) {
@@ -393,7 +407,8 @@ __device__ __forceinline__ void affine8(int n, int count, const Acc (&v)[8],
     y[e] = 0.f;
     if (e < count) {
       y[e] = __fmaf_rn(to_float(v[e]), ep.oscale[n + e], ep.bias[n + e]);
-      if (ep.relu) y[e] = fmaxf(y[e], 0.f);
+      if (ep.act != kNone) y[e] = fmaxf(y[e], 0.f);
+      if (ep.act == kRelu6) y[e] = fminf(y[e], 6.f);
     }
   }
 }
@@ -752,8 +767,8 @@ template <typename L>
 int launch(const L& aload, const DenseA<typename L::Elem>& bload, void* out,
            int M, int N, int K, int out_mode, Epilogue ep, int flags,
            cudaStream_t stream) {
-  const long long blocks = (long long)((M + kBM - 1) / kBM) *
-                           ((N + kBN - 1) / kBN);
+  const long long blocks = (((long long)M + kBM - 1) / kBM) *
+                           (((long long)N + kBN - 1) / kBN);
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)blocks);
   if constexpr (std::is_same<typename L::Elem, __nv_bfloat16>::value) {
@@ -799,14 +814,16 @@ extern "C" int int8_gemm_stages() { return kStages; }
 // dtype 0: int8 A, B (out_mode 0 gives int32, 1-3 the conv epilogue);
 // dtype 1: bf16 A, B (out_mode 0 only, f32 out);
 // dtype 2 / 3: bf16 / f32 A quantized on load with `a_scale`, int8 B
-// (as dtype 0). `oscale`/`bias` (length N) are read only for out_mode > 0.
+// (as dtype 0). `oscale`/`bias` (length N) are read only for out_mode > 0;
+// `act` is the epilogue's activation (enum Act).
 extern "C" int mm_tiled_launch(int dtype, const void* a, const void* bt,
                                void* out, int M, int N, int K, float a_scale,
                                const float* oscale, const float* bias,
-                               int relu, int out_mode, float s_next,
+                               int act, int out_mode, float s_next,
                                void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0) return (int)cudaErrorInvalidValue;
-  const Epilogue ep{oscale, bias, host_scale(s_next), relu};
+  if (M <= 0 || N <= 0 || K <= 0 || act < kNone || act > kRelu6)
+    return (int)cudaErrorInvalidValue;
+  const Epilogue ep{oscale, bias, host_scale(s_next), act};
   const auto st = static_cast<cudaStream_t>(stream);
   const int flags_out = out_flag(out, N);
   if (dtype == 1) {
@@ -840,26 +857,27 @@ extern "C" int mm_tiled_launch(int dtype, const void* a, const void* bt,
 }
 
 // x (B, H, W, Cin) int8 NHWC, wt (Cout, k*k*Cin) int8 (the flattened HWIO
-// weight, transposed), out (B, OH, OW, Cout) of the out_mode's type. pad is
-// the symmetric zero pad of each side.
+// weight, transposed), out (B, OH, OW, Cout) of the out_mode's type. pad_h,
+// pad_w are the zero pads above and left of the image.
 extern "C" int conv_int8_launch(const int8_t* x, const int8_t* wt, void* out,
                                 const float* oscale, const float* bias,
-                                int relu, int out_mode, float s_next, int B,
+                                int act, int out_mode, float s_next, int B,
                                 int H, int W, int Cin, int OH, int OW,
-                                int Cout, int k, int stride, int rate, int pad,
-                                void* stream) {
+                                int Cout, int k, int stride, int rate,
+                                int pad_h, int pad_w, void* stream) {
   const long long M = (long long)B * OH * OW;
   const long long K = (long long)k * k * Cin;
   if (M <= 0 || M > 0x7fffffffLL || K > 0x7fffffffLL || Cout <= 0 || k <= 0 ||
-      stride <= 0 || rate <= 0 || pad < 0 ||
-      (long long)H * W * Cin > 0x7fffffffLL ||
+      stride <= 0 || rate <= 0 || pad_h < 0 || pad_w < 0 || act < kNone ||
+      act > kRelu6 || (long long)H * W * Cin > 0x7fffffffLL ||
       (long long)Cout * K > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
-  const ConvA A{x, (int)M, (int)K, H, W, Cin, OH, OW, k, stride, rate, pad};
+  const ConvA A{x,  (int)M, (int)K, H,    W,     Cin,
+                OH, OW,     k,      stride, rate, pad_h, pad_w};
   const DenseA<int8_t> Bw{wt, Cout, (int)K};
   const int flags = vec_flag(x, Cin, 16, kVecA) | vec_flag(wt, K, 16, kVecB) |
                     out_flag(out, Cout);
-  const Epilogue ep{oscale, bias, host_scale(s_next), relu};
+  const Epilogue ep{oscale, bias, host_scale(s_next), act};
   return launch(A, Bw, out, (int)M, Cout, (int)K, out_mode, ep, flags,
                 static_cast<cudaStream_t>(stream));
 }

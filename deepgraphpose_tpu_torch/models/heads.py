@@ -11,6 +11,8 @@ is a stride-dilated correlation with W, padded (pad_a, pad_b) by
 by k - 1 on each side, so the flax output is its window starting at
 ``k - 1 - pad_a`` of length ``s * H``: the first ``2H`` rows for k=3, s=2.
 The flip lives in the weights (core/checkpoint.py); the crop lives here.
+The weights are cast to the input's (compute) dtype, as in
+``models/resnet.py::Conv2d``.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 KERNEL = 3
@@ -44,4 +47,7 @@ class PredictionHead(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h, w = x.shape[-2:]
         a, s = self.start, self.stride
-        return self.block4(x)[..., a:a + h * s, a:a + w * s]
+        conv = self.block4
+        y = F.conv_transpose2d(x, conv.weight.to(x.dtype),
+                               conv.bias.to(x.dtype), stride=conv.stride)
+        return y[..., a:a + h * s, a:a + w * s]

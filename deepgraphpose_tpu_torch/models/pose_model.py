@@ -8,6 +8,10 @@ The public layout is the JAX package's: images go in as (T, H, W, 3) and
 heads come out as (T, H', W', C) float32, contiguous. Inside, the NHWC
 input viewed as NCHW is already ``channels_last``, so cuDNN runs NHWC
 convolutions without a transpose.
+
+``dtype`` is the compute dtype and ``param_dtype`` the weights' (default:
+``dtype``), flax's split: ``PoseModel(cfg, torch.bfloat16,
+param_dtype=torch.float32)`` is the mixed-precision training model.
 """
 
 from __future__ import annotations
@@ -19,8 +23,8 @@ from torch import nn
 
 from deepgraphpose_tpu_torch.core.config import PoseConfig
 from deepgraphpose_tpu_torch.core.device import resolve_device, resolve_dtype
+from deepgraphpose_tpu_torch.models import mobilenet, resnet
 from deepgraphpose_tpu_torch.models.heads import PredictionHead
-from deepgraphpose_tpu_torch.models.resnet import make_backbone
 
 
 def _nhwc_f32(y: torch.Tensor) -> torch.Tensor:
@@ -34,29 +38,33 @@ class PoseModel(nn.Module):
     the defaults).
     """
 
-    def __init__(self, cfg: PoseConfig, dtype=torch.float32):
+    def __init__(self, cfg: PoseConfig, dtype=torch.float32,
+                 param_dtype=None):
         super().__init__()
-        if cfg.net_type.startswith("mobilenet"):
-            raise NotImplementedError(
-                "mobilenet backbones wait for a later slice of the port")
         self.cfg = cfg
         self.dtype = resolve_dtype(dtype)
+        self.param_dtype = (self.dtype if param_dtype is None
+                            else resolve_dtype(param_dtype))
         self.register_buffer(
             "mean_pixel", torch.tensor(cfg.mean_pixel, dtype=torch.float32),
             persistent=False)
+        mobile = cfg.net_type.startswith("mobilenet")
+        make_backbone = (mobilenet if mobile else resnet).make_backbone
         self.backbone = make_backbone(cfg.net_type, cfg.output_stride,
-                                      self.dtype)
+                                      self.dtype, self.param_dtype)
         feat = self.backbone.out_depth
-        nj, ds = cfg.num_joints, cfg.deconvolutionstride
-        self.part_pred = PredictionHead(feat, nj, ds, self.dtype)
+        nj, ds, pdtype = (cfg.num_joints, cfg.deconvolutionstride,
+                          self.param_dtype)
+        self.part_pred = PredictionHead(feat, nj, ds, pdtype)
         self.head_keys = ["part_pred"]
         if cfg.location_refinement:
-            self.locref_pred = PredictionHead(feat, 2 * nj, ds, self.dtype)
+            self.locref_pred = PredictionHead(feat, 2 * nj, ds, pdtype)
             self.head_keys.append("locref")
-        if cfg.intermediate_supervision:
-            # supervise the block-3 tap (ref: pose_net.py:69-78)
+        if cfg.intermediate_supervision and not mobile:
+            # supervise the block-3 tap (ref: pose_net.py:69-78); the JAX
+            # package has none for MobileNetV2
             self.intermediate_supervision = PredictionHead(1024, nj, ds,
-                                                           self.dtype)
+                                                           pdtype)
             self.head_keys.append("part_pred_interm")
 
     def forward(self, images: torch.Tensor, heads=None,
@@ -133,13 +141,14 @@ def _init_weights(model: nn.Module, generator: torch.Generator) -> None:
 
 
 def init_model(cfg: PoseConfig, generator: torch.Generator | None = None,
-               dtype=torch.float32, device=None) -> PoseModel:
+               dtype=torch.float32, device=None,
+               param_dtype=None) -> PoseModel:
     """A randomly initialized PoseModel on ``device`` (default: the card),
     in eval mode and ``channels_last`` memory. ``generator`` is a CPU
     ``torch.Generator``; None seeds one with 0."""
     if generator is None:
         generator = torch.Generator().manual_seed(0)
-    model = PoseModel(cfg, dtype=dtype)
+    model = PoseModel(cfg, dtype=dtype, param_dtype=param_dtype)
     _init_weights(model, generator)
     return model.to(resolve_device(device),
                     memory_format=torch.channels_last).eval()

@@ -14,21 +14,24 @@ scheme, site names and arithmetic:
 * inside each bottleneck the conv1 -> conv2 -> conv3 chain carries int8:
   the epilogue requantizes with the next conv's input scale. Block
   boundaries carry ``carry_dtype``, or int8 with ``residual_int8``;
-* the deconv heads stay in the model dtype.
+* the deconv heads stay in the model dtype;
+* MobileNetV2 (every width): the stem, expand, project and head convs
+  quantize, with ReLU6 in the epilogue and TF SAME padding; the depthwise
+  3x3s stay float32 (folded BN, a cuDNN grouped conv, then bias and
+  ReLU6), and no chain carries int8.
 
 Every conv runs on the hand-written CUDA GEMM ``csrc/int8_gemm.cu``
 (``ops/kernels/int8_gemm_kernel.py``) on a CUDA tensor, and on its plain
 version on the CPU. A 1x1 stride-1 conv quantizes a wide input as the
-kernel loads it; the residual adds, ReLUs, max-pools and the other
-quantizations of wide carries are PyTorch ops, as the JAX package left
-them to XLA. Activations walk as NHWC tensors; a conv's weight is a 2-D
-(k*k*Cin, Cout) int8 matrix, so ``channels_last`` never restrides it.
+kernel loads it; the residual adds, ReLUs, max-pools, depthwise convs and
+the other quantizations of wide carries are PyTorch ops, as the JAX
+package left them to XLA. Activations walk as NHWC tensors; a conv's
+weight is a 2-D (k*k*Cin, Cout) int8 matrix, so ``channels_last`` never
+restrides it.
 
 The result has ``PoseModel``'s call: ``qmodel(images_u8, heads=...)``
 returns the same dict of NHWC float32 heads, so ``infer_forward``,
 ``make_crop_infer_fn`` and ``DynamicTracker`` take it unchanged.
-
-Backbones: the ResNets. MobileNetV2 waits for its own slice of the port.
 
 Usage::
 
@@ -46,11 +49,13 @@ from torch import nn
 from deepgraphpose_tpu_torch.core.checkpoint import HEAD_NAMES
 from deepgraphpose_tpu_torch.core.config import PoseConfig
 from deepgraphpose_tpu_torch.core.device import resolve_dtype
+from deepgraphpose_tpu_torch.models import mobilenet as mnet
 from deepgraphpose_tpu_torch.models.heads import PredictionHead
 from deepgraphpose_tpu_torch.models.pose_model import _nhwc_f32
 from deepgraphpose_tpu_torch.models.resnet import (BLOCK_UNITS,
                                                    same_pad_for_stride,
                                                    unit_plan)
+from deepgraphpose_tpu_torch.ops.int8_gemm import RELU6, side_pads
 from deepgraphpose_tpu_torch.ops.int8_gemm import quantize_to as _quantize_to
 from deepgraphpose_tpu_torch.ops.kernels import int8_gemm_kernel as kernels
 
@@ -59,19 +64,28 @@ CALIB_BATCH = 8  # calibration frames per float32 forward
 
 
 def _check_backbone(net_type: str) -> None:
-    if net_type.startswith("mobilenet"):
+    if net_type not in BLOCK_UNITS and net_type not in mnet.WIDTHS:
         raise NotImplementedError(
-            f"int8 quantization of {net_type} waits for the MobileNetV2 "
-            "slice of the port (models/mobilenet.py)")
-    if net_type not in BLOCK_UNITS:
-        raise NotImplementedError(
-            f"int8 quantization supports the ResNet backbones "
-            f"{sorted(BLOCK_UNITS)}, not {net_type}")
+            f"int8 quantization supports the ResNet and MobileNetV2 "
+            f"backbones {sorted(BLOCK_UNITS) + sorted(mnet.WIDTHS)}, "
+            f"not {net_type}")
+
+
+def _mobile(net_type: str) -> bool:
+    return net_type in mnet.WIDTHS
 
 
 def supports_residual_int8(net_type: str) -> bool:
-    """Whether the int8 residual-stream carry exists for this backbone."""
+    """Whether the int8 residual-stream carry exists for this backbone
+    (the ResNets; MobileNetV2's inverted-residual carries stay float)."""
     return net_type in BLOCK_UNITS
+
+
+def _check_residual_int8(net_type: str, residual_int8: bool) -> None:
+    if residual_int8 and not supports_residual_int8(net_type):
+        raise NotImplementedError(
+            "residual_int8 is a ResNet residual-stream mode; "
+            f"{net_type} has no int8 carry lowering — use int8_carry")
 
 
 def _fold(conv: nn.Conv2d, bn) -> tuple[torch.Tensor, torch.Tensor]:
@@ -84,9 +98,20 @@ def _fold(conv: nn.Conv2d, bn) -> tuple[torch.Tensor, torch.Tensor]:
 
 def folded_backbone_weights(model) -> dict:
     """{site: (W_folded float32 HWIO, bias float32)} for every backbone
-    conv of a ``PoseModel``, under the JAX package's site names."""
+    conv of a ``PoseModel``, under the JAX package's site names (the
+    MobileNetV2 depthwise sites' kernels are (3, 3, 1, C))."""
     _check_backbone(model.cfg.net_type)
     bb = model.backbone
+    if _mobile(model.cfg.net_type):
+        out = {"conv_stem": _fold(bb.conv_stem, bb.stem_bn),
+               "conv_head": _fold(bb.conv_head, bb.head_bn)}
+        for name in bb.unit_names:
+            unit = getattr(bb, name)
+            for conv in ("expand", "depthwise", "project"):
+                if hasattr(unit, conv):
+                    out[f"{name}/{conv}"] = _fold(getattr(unit, conv),
+                                                  getattr(unit, f"{conv}_bn"))
+        return out
     out = {"conv1": _fold(bb.conv1, bb.bn1)}
     for name in bb.unit_names:
         unit = getattr(bb, name)
@@ -112,12 +137,55 @@ def _pad_for(k: int, stride: int, rate: int) -> int:
     return lo
 
 
-def _float_conv(x, w, stride: int, rate: int, pad: int) -> torch.Tensor:
+def _same_pad(k: int, stride: int, rate: int, x):
+    """TF SAME pads ((top, bottom), (left, right)) of NHWC ``x``."""
+    return tuple(mnet.same_pads(k, stride, rate, n) for n in x.shape[1:3])
+
+
+def _float_conv(x, w, stride: int, rate: int, pad,
+                groups: int = 1) -> torch.Tensor:
     """NHWC x, HWIO w -> NHWC (a contiguous NHWC tensor viewed as NCHW is
-    channels_last, so the conv runs NHWC)."""
-    y = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), stride=stride,
-                 padding=pad, dilation=rate)
+    channels_last, so the conv runs NHWC). ``pad`` as ``conv_int8``'s."""
+    (top, bottom), (left, right) = side_pads(pad)
+    x = x.permute(0, 3, 1, 2)
+    if top != bottom or left != right:
+        x = F.pad(x, (left, right, top, bottom))
+        top = left = 0
+    y = F.conv2d(x, w.permute(3, 2, 0, 1), stride=stride,
+                 padding=(top, left), dilation=rate, groups=groups)
     return y.permute(0, 2, 3, 1)
+
+
+def _depthwise(x, w, b, stride: int, rate: int) -> torch.Tensor:
+    """A float depthwise site: the grouped conv of NHWC ``x`` with the
+    folded HWIO ``w`` (3, 3, 1, C), TF SAME padding, + ``b``, ReLU6."""
+    y = _float_conv(x, w, stride, rate, _same_pad(3, stride, rate, x),
+                    groups=w.shape[-1])
+    return mnet.relu6(y + b)
+
+
+def _walk_mobilenet(cfg: PoseConfig, x, conv_fn, dw_fn):
+    """MobileNetV2 topology over models/mobilenet.py::unit_plan.
+
+    ``conv_fn(site, x, stride, rate, relu)`` serves the dense (stem, 1x1)
+    convs, the quantized bulk; ``dw_fn(site, x, stride, rate)`` the
+    depthwise 3x3s, which stay float (one multiply-add per pixel and
+    channel: no GEMM to gain).
+    """
+    x = conv_fn("conv_stem", x, 2, 1, relu=True)
+    end_points = {}
+    for name, exp, _, stride, rate in mnet.unit_plan(
+            mnet.WIDTHS[cfg.net_type], cfg.output_stride):
+        y = x
+        if exp != 1:
+            y = conv_fn(f"{name}/expand", y, 1, 1, relu=True)
+        y = dw_fn(f"{name}/depthwise", y, stride, rate)
+        y = conv_fn(f"{name}/project", y, 1, 1, relu=False)
+        x = x + y if (stride == 1 and x.shape[-1] == y.shape[-1]) else y
+        end_points[name.split("_")[0]] = x
+    x = conv_fn("conv_head", x, 1, 1, relu=True)
+    end_points["head"] = x
+    return x, end_points
 
 
 def _max_pool_nhwc(x, k: int, stride: int) -> torch.Tensor:
@@ -168,8 +236,19 @@ def _chain_consumer(site: str) -> str | None:
 
 
 def site_shapes(net_type: str, output_stride: int = 16) -> dict:
-    """{site: (k, Cin, Cout)} for every conv of a ResNet, in walk order."""
+    """{site: (k, Cin, Cout)} for every quantized conv, in walk order."""
     _check_backbone(net_type)
+    if _mobile(net_type):
+        width = mnet.WIDTHS[net_type]
+        ch = mnet.stem_depth(width)
+        shapes = {"conv_stem": (3, 3, ch)}
+        for name, exp, out_ch, _, _ in mnet.unit_plan(width, output_stride):
+            if exp != 1:
+                shapes[f"{name}/expand"] = (1, ch, ch * exp)
+            shapes[f"{name}/project"] = (1, ch * exp, out_ch)
+            ch = out_ch
+        shapes["conv_head"] = (1, ch, mnet.head_depth(width))
+        return shapes
     shapes = {"conv1": (7, 3, 64)}
     in_depth = 64
     for name, depth, db, _, _ in unit_plan(BLOCK_UNITS[net_type],
@@ -183,6 +262,19 @@ def site_shapes(net_type: str, output_stride: int = 16) -> dict:
     return shapes
 
 
+def depthwise_sites(net_type: str, output_stride: int = 16) -> dict:
+    """{site: channels} of MobileNetV2's float depthwise convs (none for a
+    ResNet)."""
+    if not _mobile(net_type):
+        return {}
+    width = mnet.WIDTHS[net_type]
+    ch, out = mnet.stem_depth(width), {}
+    for name, exp, out_ch, _, _ in mnet.unit_plan(width, output_stride):
+        out[f"{name}/depthwise"] = ch * exp
+        ch = out_ch
+    return out
+
+
 class QuantConv(nn.Module):
     """One int8 conv site: the (k*k*Cin, Cout) int8 weight (the HWIO
     kernel flattened), per-channel ``oscale`` and ``bias``, and the
@@ -191,11 +283,13 @@ class QuantConv(nn.Module):
 
     ``qw_nk`` is ``qw`` transposed, (Cout, k*k*Cin) contiguous, the layout
     the GEMM kernel reads: a buffer that is not saved, made again whenever
-    a state is loaded and moved with the module."""
+    a state is loaded and moved with the module. ``same``: TF SAME padding
+    (MobileNetV2) rather than slim's (the ResNets)."""
 
-    def __init__(self, k: int, cin: int, cout: int):
+    def __init__(self, k: int, cin: int, cout: int, same: bool = False):
         super().__init__()
         self.k = k
+        self.same = same
         self.register_buffer("qw", torch.zeros(k * k * cin, cout,
                                                dtype=torch.int8))
         self.register_buffer("qw_nk", torch.zeros(cout, k * k * cin,
@@ -215,7 +309,7 @@ class QuantConv(nn.Module):
         super()._load_from_state_dict(*args, **kwargs)
         self.qw_nk = self.qw.t().contiguous()
 
-    def forward(self, x, stride: int, rate: int, relu: bool, out):
+    def forward(self, x, stride: int, rate: int, relu: int, out):
         # an int8 input was requantized by its producer with THIS site's
         # act_scale (the _chain_consumer / residual block_out contracts); a
         # wide input is quantized with it, by the kernel as it loads a 1x1
@@ -227,13 +321,35 @@ class QuantConv(nn.Module):
             else:
                 x = _quantize_to(x, self.act_scale)
         return kernels.conv_int8(x.contiguous(), self.qw, self.k, stride,
-                                 rate, _pad_for(self.k, stride, rate),
+                                 rate, _conv_pad(self.same, self.k, stride,
+                                                 rate, x),
                                  self.oscale, self.bias, relu, out, in_scale,
                                  w_nk=self.qw_nk)
 
 
+class DepthwiseSite(nn.Module):
+    """One float depthwise 3x3 site of the int8 MobileNetV2: the folded
+    weight (C, 1, 3, 3) and bias, float32 (the JAX package's
+    ``qvariables["dw"]``). forward: NHWC in, a float32 grouped conv with
+    TF SAME padding, + bias, ReLU6, NHWC out in ``carry_dtype``, inside
+    the profiler range ``models.mobilenet.DEPTHWISE_RANGE``."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.register_buffer("weight", torch.zeros(channels, 1, 3, 3))
+        self.register_buffer("bias", torch.zeros(channels))
+
+    def forward(self, x, stride: int, rate: int, carry_dtype):
+        with torch.profiler.record_function(mnet.DEPTHWISE_RANGE):
+            y = _depthwise(x.to(torch.float32),
+                           self.weight.permute(2, 3, 1, 0), self.bias,
+                           stride, rate)
+            return y.to(carry_dtype).contiguous()
+
+
 def _int8_backbone(cfg: PoseConfig, sites, x, carry_dtype=torch.bfloat16,
-                   int8_carry: bool = True, residual_int8: bool = False):
+                   int8_carry: bool = True, residual_int8: bool = False,
+                   dw=None):
     """The int8 backbone walk over NHWC float32 input.
 
     ``residual_int8`` extends the narrow carry to the residual stream: each
@@ -242,7 +358,20 @@ def _int8_backbone(cfg: PoseConfig, sites, x, carry_dtype=torch.bfloat16,
     calibrated on the same tensor, so the scales are identical);
     identity / subsampling shortcuts dequantize before the add, and the
     final unit stays wide (it feeds the heads).
+
+    MobileNetV2 carries ``carry_dtype`` everywhere, applies ReLU6 in the
+    epilogue and runs its depthwise sites (``dw``) in float32.
     """
+    if _mobile(cfg.net_type):
+        def conv_fn(site, x, stride, rate, relu):
+            return sites[site](x, stride, rate, RELU6 if relu else 0,
+                               carry_dtype)
+
+        def dw_fn(site, x, stride, rate):
+            return dw[site](x, stride, rate, carry_dtype)
+
+        return _walk_mobilenet(cfg, x, conv_fn, dw_fn)
+
     def conv_fn(site, x, stride, rate, relu):
         nxt = _chain_consumer(site) if int8_carry else None
         out = (("int8", sites[nxt].act_scale) if nxt in sites
@@ -277,8 +406,9 @@ class QuantizedPoseModel(nn.Module):
     ``dtype`` is the heads' compute dtype; ``carry_dtype`` the type of
     the activations at graph branch points (block inputs / outputs,
     residual adds); ``int8_carry`` carries the conv1 -> conv2 -> conv3
-    chains in int8; ``residual_int8`` carries the residual stream in int8
-    too. Build it with :func:`quantize_model`, or load
+    chains in int8 (a ResNet's; MobileNetV2 has no such chain);
+    ``residual_int8`` carries the residual stream in int8 too (ResNets
+    only). Build it with :func:`quantize_model`, or load
     ``core.checkpoint.quant_state_from_flax`` into it.
     """
 
@@ -287,6 +417,8 @@ class QuantizedPoseModel(nn.Module):
                  residual_int8: bool = False):
         super().__init__()
         _check_backbone(cfg.net_type)
+        _check_residual_int8(cfg.net_type, residual_int8)
+        mobile = _mobile(cfg.net_type)
         self.cfg = cfg
         self.dtype = resolve_dtype(dtype)
         self.carry_dtype = resolve_dtype(carry_dtype)
@@ -295,17 +427,21 @@ class QuantizedPoseModel(nn.Module):
         self.register_buffer(
             "mean_pixel", torch.tensor(cfg.mean_pixel, dtype=torch.float32),
             persistent=False)
+        shapes = site_shapes(cfg.net_type, cfg.output_stride)
         self.sites = nn.ModuleDict({
-            site: QuantConv(*shape)
-            for site, shape in site_shapes(cfg.net_type,
-                                           cfg.output_stride).items()})
+            site: QuantConv(*shape, same=mobile)
+            for site, shape in shapes.items()})
+        self.dw = nn.ModuleDict({
+            site: DepthwiseSite(c) for site, c in depthwise_sites(
+                cfg.net_type, cfg.output_stride).items()})
+        feat = list(shapes.values())[-1][-1]  # the last conv's width
         nj, ds = cfg.num_joints, cfg.deconvolutionstride
-        self.part_pred = PredictionHead(2048, nj, ds, self.dtype)
+        self.part_pred = PredictionHead(feat, nj, ds, self.dtype)
         self.head_keys = ["part_pred"]
         if cfg.location_refinement:
-            self.locref_pred = PredictionHead(2048, 2 * nj, ds, self.dtype)
+            self.locref_pred = PredictionHead(feat, 2 * nj, ds, self.dtype)
             self.head_keys.append("locref")
-        if cfg.intermediate_supervision:
+        if cfg.intermediate_supervision and not mobile:
             self.intermediate_supervision = PredictionHead(1024, nj, ds,
                                                            self.dtype)
             self.head_keys.append("part_pred_interm")
@@ -334,7 +470,8 @@ class QuantizedPoseModel(nn.Module):
         x = (images.to(torch.float32) - self.mean_pixel).contiguous()
         features, end_points = _int8_backbone(
             self.cfg, self.sites, x, carry_dtype=self.carry_dtype,
-            int8_carry=self.int8_carry, residual_int8=self.residual_int8)
+            int8_carry=self.int8_carry, residual_int8=self.residual_int8,
+            dw=self.dw)
         features = features.to(self.dtype)
         out = {}
         if return_features:
@@ -357,16 +494,38 @@ def _collect_forward(cfg: PoseConfig, folded: dict, images):
                         device=images.device)
     x = images.to(torch.float32) - mean
     amax: dict = {}
+    mobile = _mobile(cfg.net_type)
+    act = mnet.relu6 if mobile else torch.relu
 
     def conv_fn(site, x, stride, rate, relu):
         w, b = folded[site]
         amax[site] = x.abs().amax()
         y = _float_conv(x, w, stride, rate,
-                        _pad_for(w.shape[0], stride, rate)) + b
-        return torch.relu(y) if relu else y
+                        _conv_pad(mobile, w.shape[0], stride, rate, x)) + b
+        return act(y) if relu else y
 
-    features, _ = _walk_backbone(cfg, BLOCK_UNITS[cfg.net_type], x, conv_fn)
+    features, _ = _walk(cfg, x, conv_fn, _float_dw(folded))
     return amax, features
+
+
+def _conv_pad(same: bool, k: int, stride: int, rate: int, x):
+    """A conv's pads: TF SAME's from NHWC ``x`` (MobileNetV2), or slim's
+    (the ResNets)."""
+    return (_same_pad(k, stride, rate, x) if same
+            else _pad_for(k, stride, rate))
+
+
+def _float_dw(folded: dict):
+    """The float depthwise sites of the calibration walks."""
+    def dw_fn(site, x, stride, rate):
+        return _depthwise(x, *folded[site], stride, rate)
+    return dw_fn
+
+
+def _walk(cfg: PoseConfig, x, conv_fn, dw_fn):
+    if _mobile(cfg.net_type):
+        return _walk_mobilenet(cfg, x, conv_fn, dw_fn)
+    return _walk_backbone(cfg, BLOCK_UNITS[cfg.net_type], x, conv_fn)
 
 
 def _local_bias_stats(cfg: PoseConfig, folded: dict, sites, images) -> dict:
@@ -377,11 +536,13 @@ def _local_bias_stats(cfg: PoseConfig, folded: dict, sites, images) -> dict:
                         device=images.device)
     x = images.to(torch.float32) - mean
     diff: dict = {}
+    mobile = _mobile(cfg.net_type)
+    act = mnet.relu6 if mobile else torch.relu
 
     def conv_fn(site, x, stride, rate, relu):
         w, b = folded[site]
         q = sites[site]
-        pad = _pad_for(w.shape[0], stride, rate)
+        pad = _conv_pad(mobile, w.shape[0], stride, rate, x)
         y32 = _float_conv(x, w, stride, rate, pad) + b
         # the reciprocal in float32, then a multiply (not a divide), as the
         # JAX package computes this statistic
@@ -391,9 +552,9 @@ def _local_bias_stats(cfg: PoseConfig, folded: dict, sites, images) -> dict:
                                q.oscale, b, False, torch.float32,
                                w_nk=q.qw_nk)
         diff[site] = torch.mean(y32 - y8, dim=(0, 1, 2))
-        return torch.relu(y32) if relu else y32
+        return act(y32) if relu else y32
 
-    _walk_backbone(cfg, BLOCK_UNITS[cfg.net_type], x, conv_fn)
+    _walk(cfg, x, conv_fn, _float_dw(folded))
     return diff
 
 
@@ -417,9 +578,11 @@ def quantize_model(cfg: PoseConfig, model, calib_images,
     over them, and its bias takes the measured mean output shift of its
     int8 lowering (:func:`_local_bias_stats`), as the JAX package's
     defaults do. The weight and scale arithmetic is the JAX package's, in
-    numpy on the host.
+    numpy on the host. MobileNetV2's depthwise sites keep their folded
+    float32 weights.
     """
     _check_backbone(cfg.net_type)
+    _check_residual_int8(cfg.net_type, residual_int8)
     device = model.mean_pixel.device
     folded = folded_backbone_weights(model)
     calib = np.asarray(calib_images)
@@ -438,6 +601,11 @@ def quantize_model(cfg: PoseConfig, model, calib_images,
 
     state = {}
     for site, (w, b) in folded.items():
+        if site.endswith("/depthwise"):
+            state[f"dw.{site}.weight"] = w.permute(3, 2, 0, 1).contiguous(
+                ).cpu()
+            state[f"dw.{site}.bias"] = b.cpu()
+            continue
         w = w.cpu().numpy()
         sw = np.abs(w).reshape(-1, w.shape[-1]).max(axis=0) / 127.0
         sw = np.maximum(sw, 1e-12)

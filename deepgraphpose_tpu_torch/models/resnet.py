@@ -13,8 +13,14 @@ used here both reduce to a symmetric pad of ``rate * (k - 1) / 2``, which
 ``nn.Conv2d(padding=...)`` expresses directly. The root max-pool is VALID.
 
 Layout: modules take NCHW tensors; the port keeps them in
-``torch.channels_last`` memory so cuDNN runs NHWC convolutions. Weights
-live in the compute dtype; batch-norm statistics stay float32.
+``torch.channels_last`` memory so cuDNN runs NHWC convolutions.
+
+Precision follows flax's split of ``param_dtype`` and ``dtype``: conv
+weights live in ``param_dtype`` and are cast to the compute dtype (the
+input's) at each conv, so float32 weights train under bfloat16 compute;
+``param_dtype`` defaults to ``dtype`` (bfloat16 inference keeps bfloat16
+weights, and no cast runs). Batch-norm parameters and statistics stay
+float32.
 """
 
 from __future__ import annotations
@@ -40,13 +46,22 @@ def same_pad_for_stride(kernel: int, rate: int = 1) -> tuple[int, int]:
     return (total // 2, total - total // 2)
 
 
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` that casts its weight (and bias) to the input's dtype,
+    flax's compute dtype; a no-op where the two agree."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return self._conv_forward(x, self.weight.to(x.dtype), bias)
+
+
 def _conv(cin: int, cout: int, k: int, stride: int = 1, rate: int = 1,
-          dtype=torch.float32) -> nn.Conv2d:
+          dtype=torch.float32) -> Conv2d:
     lo, hi = same_pad_for_stride(k, rate)
     if lo != hi:
         raise ValueError(f"asymmetric pad for kernel {k}, rate {rate}")
-    return nn.Conv2d(cin, cout, k, stride=stride, padding=lo, dilation=rate,
-                     bias=False, dtype=dtype)
+    return Conv2d(cin, cout, k, stride=stride, padding=lo, dilation=rate,
+                  bias=False, dtype=dtype)
 
 
 class FrozenBatchNorm(nn.Module):
@@ -165,16 +180,18 @@ class ResNetV1(nn.Module):
     """
 
     def __init__(self, units: Sequence[int] = (3, 4, 6, 3),
-                 output_stride: int = 16, dtype=torch.float32):
+                 output_stride: int = 16, dtype=torch.float32,
+                 param_dtype=None):
         super().__init__()
         self.dtype = dtype
-        self.conv1 = _conv(3, 64, 7, 2, dtype=dtype)
+        pdtype = dtype if param_dtype is None else param_dtype
+        self.conv1 = _conv(3, 64, 7, 2, dtype=pdtype)
         self.bn1 = FrozenBatchNorm(64)
         self.unit_names = []
         in_depth = 64
         for name, depth, db, stride, rate in unit_plan(units, output_stride):
             self.add_module(name, BottleneckV1(in_depth, depth, db, stride,
-                                               rate, dtype=dtype))
+                                               rate, dtype=pdtype))
             self.unit_names.append(name)
             in_depth = depth
         self.out_depth = in_depth
@@ -193,10 +210,9 @@ class ResNetV1(nn.Module):
 
 
 def make_backbone(net_type: str, output_stride: int = 16,
-                  dtype=torch.float32) -> ResNetV1:
+                  dtype=torch.float32, param_dtype=None) -> ResNetV1:
     if net_type not in BLOCK_UNITS:
-        raise ValueError(
-            f"unknown net_type {net_type!r}; available: {sorted(BLOCK_UNITS)}"
-            " (mobilenet waits for a later slice of the port)")
+        raise ValueError(f"unknown resnet variant {net_type!r}; "
+                         f"available: {sorted(BLOCK_UNITS)}")
     return ResNetV1(units=BLOCK_UNITS[net_type], output_stride=output_stride,
-                    dtype=dtype)
+                    dtype=dtype, param_dtype=param_dtype)

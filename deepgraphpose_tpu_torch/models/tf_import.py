@@ -16,12 +16,14 @@ Layout notes:
   mirrored relative to flax ``nn.ConvTranspose`` (H, W, in, out): imported
   deconv kernels are flipped along both spatial axes and have their
   channel axes swapped;
+* TF depthwise kernels are (H, W, C, 1); flax's grouped conv kernels
+  (H, W, 1, C): the last two axes swap;
 * slim BatchNorm {gamma, beta, moving_mean, moving_variance} map onto
   FrozenBatchNorm {scale, bias} and {mean, var}.
 
 TensorFlow's checkpoint reader is imported inside
 :func:`load_tf_checkpoint_arrays` only; :func:`import_tf_arrays` is pure
-numpy and torch. MobileNetV2 names wait for ROADMAP item 15.
+numpy and torch.
 """
 
 from __future__ import annotations
@@ -53,6 +55,30 @@ def _deconv_from_tf(arr: np.ndarray) -> np.ndarray:
     """TF conv2d_transpose (H, W, out, in) -> flax ConvTranspose
     (H, W, in, out), mirrored spatially (see the module docstring)."""
     return np.ascontiguousarray(arr[::-1, ::-1].transpose(0, 1, 3, 2))
+
+
+def _depthwise_from_tf(arr: np.ndarray) -> np.ndarray:
+    """TF depthwise (H, W, C, mult=1) -> flax grouped conv (H, W, 1, C):
+    TF applies filter [:, :, c, 0] to channel c, flax kernel[:, :, 0, c]."""
+    return np.ascontiguousarray(arr.transpose(0, 1, 3, 2))
+
+
+# flat slim index of (block, unit): slim names the 17 inverted-residual ops
+# expanded_conv, expanded_conv_1 ... expanded_conv_16 in order
+_V2_UNITS = (1, 2, 3, 4, 3, 3, 1)
+_V2_OFFSETS = tuple(sum(_V2_UNITS[:b]) for b in range(len(_V2_UNITS)))
+
+
+def _mobilenet_scope(block: int, unit: int) -> str:
+    flat = _V2_OFFSETS[block] + unit
+    suffix = "" if flat == 0 else f"_{flat}"
+    return f"MobilenetV2/expanded_conv{suffix}"
+
+
+def backbone_tf_scope(net_type: str) -> str:
+    """The TF variable scope of a backbone's weights: the prefix of an
+    ImageNet warm start's restore (ref: fitdgp.py:393-400)."""
+    return "MobilenetV2" if net_type.startswith("mobilenet") else "resnet"
 
 
 def tf_name_for_path(path: tuple[str, ...], net_type: str) -> tuple[str, Callable] | None:
@@ -96,10 +122,34 @@ def tf_name_for_path(path: tuple[str, ...], net_type: str) -> tuple[str, Callabl
                         f"{_BN_MAP[(collection, leaf)]}", ident)
         return None
 
+    # --- MobileNetV2 backbone (slim scope MobilenetV2, ref:
+    # pose_net_mobilenet.py:31-200 / mobilenet_v2.py) ---
     if mods and mods[0].startswith("MobileNetV2"):
-        raise NotImplementedError(
-            "MobileNetV2 TF checkpoints wait for the MobileNetV2 slice of the "
-            "port (ROADMAP item 15)")
+        mods = mods[1:]
+        if not mods:
+            return None
+        bn_leaf = _BN_MAP.get((collection, leaf))
+        if mods[0] == "conv_stem" and leaf == "kernel":
+            return "MobilenetV2/Conv/weights", ident
+        if mods[0] == "stem_bn" and bn_leaf:
+            return f"MobilenetV2/Conv/BatchNorm/{bn_leaf}", ident
+        if mods[0] == "conv_head" and leaf == "kernel":
+            return "MobilenetV2/Conv_1/weights", ident
+        if mods[0] == "head_bn" and bn_leaf:
+            return f"MobilenetV2/Conv_1/BatchNorm/{bn_leaf}", ident
+        m = re.fullmatch(r"block(\d+)_unit(\d+)", mods[0])
+        if m:
+            base = _mobilenet_scope(int(m.group(1)), int(m.group(2)))
+            sub = mods[1]
+            if sub == "depthwise" and leaf == "kernel":
+                return (f"{base}/depthwise/depthwise_weights",
+                        _depthwise_from_tf)
+            if sub in ("expand", "project") and leaf == "kernel":
+                return f"{base}/{sub}/weights", ident
+            bm = re.fullmatch(r"(expand|depthwise|project)_bn", sub)
+            if bm and bn_leaf:
+                return f"{base}/{bm.group(1)}/BatchNorm/{bn_leaf}", ident
+        return None
 
     # --- heads: pose/{part_pred,locref_pred,intermediate_supervision}/block4 ---
     if mods and mods[0] in _HEAD_SCOPES:
@@ -137,7 +187,7 @@ def import_tf_arrays(state: Mapping, arrays: Mapping[str, np.ndarray],
       state: the model's state_dict (``model.state_dict()``).
       arrays: mapping of TF variable name -> numpy array (e.g. from
         :func:`load_tf_checkpoint_arrays`).
-      net_type: resnet_50 / resnet_101 / resnet_152.
+      net_type: resnet_50 / resnet_101 / resnet_152 / mobilenet_v2_*.
       scopes: if given, only TF names starting with one of these prefixes are
         imported (mirrors the reference's scope-filtered restores,
         ref: fitdgp.py:393-400 — e.g. ``("resnet",)`` for ImageNet

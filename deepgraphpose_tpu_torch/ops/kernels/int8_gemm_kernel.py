@@ -31,6 +31,7 @@ from deepgraphpose_tpu_torch.ops import int8_gemm as plain
 from deepgraphpose_tpu_torch.ops.kernels import build
 
 launches = {"mm_tiled": 0, "conv_int8": 0}
+RELU6 = plain.RELU6  # the epilogue's ReLU6 code
 
 _OUT_MODES = {torch.int32: 0, torch.float32: 1, torch.bfloat16: 2}
 
@@ -59,7 +60,7 @@ def _lib():
         lib.mm_tiled_launch.argtypes = [i, p, p, p, i, i, i, f, p, p, i, i,
                                          f, p]
         lib.conv_int8_launch.restype = i
-        lib.conv_int8_launch.argtypes = [p, p, p, p, p, i, i, f] + [i] * 11 + [
+        lib.conv_int8_launch.argtypes = [p, p, p, p, p, i, i, f] + [i] * 12 + [
             p]
         lib.int8_gemm_stages.restype = i
         lib.int8_gemm_stages.argtypes = []
@@ -84,6 +85,14 @@ def _device_of(*tensors) -> torch.device:
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def _check_int32(name: str, value: int) -> None:
+    """The launch functions take 32-bit sizes (ctypes would wrap a larger
+    one silently)."""
+    if value > 2 ** 31 - 1:
+        raise ValueError(f"{name} = {value} exceeds the kernel's 32-bit "
+                         "sizes")
 
 
 def _launched(name: str, rc: int, shape) -> None:
@@ -131,6 +140,8 @@ def mm(a: torch.Tensor, b: torch.Tensor, acc_dtype=None,
     if not (a.is_contiguous() and b.is_contiguous()):
         raise ValueError("mm takes row-major contiguous operands")
     (m, k), n = a.shape, b.shape[1]
+    for name, v in (("M", m), ("N", n), ("K", k)):
+        _check_int32(name, v)
     out = torch.empty((m, n), dtype=acc, device=dev)
     if m == 0 or n == 0:
         return out
@@ -146,8 +157,8 @@ def mm(a: torch.Tensor, b: torch.Tensor, acc_dtype=None,
 
 
 def conv_int8(xq: torch.Tensor, w: torch.Tensor, k: int, stride: int,
-              rate: int, pad: int, oscale: torch.Tensor | None,
-              bias: torch.Tensor | None, relu: bool, out,
+              rate: int, pad, oscale: torch.Tensor | None,
+              bias: torch.Tensor | None, relu: int, out,
               in_scale: float | None = None,
               w_nk: torch.Tensor | None = None) -> torch.Tensor:
     """One quantized conv over NHWC input; see ``ops/int8_gemm.py``.
@@ -157,7 +168,9 @@ def conv_int8(xq: torch.Tensor, w: torch.Tensor, k: int, stride: int,
     (k*k*Cin, N) int8 contiguous; oscale, bias (N,) float32 (unused when
     ``out`` is ``torch.int32``). The kernel reads the weight as its (N,
     k*k*Cin) transpose: ``w_nk``, a contiguous copy the caller keeps (as
-    ``QuantConv.qw_nk``), or one made per call. Returns (B, OH, OW, N)
+    ``QuantConv.qw_nk``), or one made per call. ``pad`` is an int or
+    ((top, bottom), (left, right)), ``relu`` the activation (0 / False, 1 /
+    True ReLU, ``RELU6``); see ``ops/int8_gemm.py``. Returns (B, OH, OW, N)
     contiguous in ``out``'s type.
     """
     mode, out_dtype, s_next = _out_spec(out)
@@ -168,7 +181,8 @@ def conv_int8(xq: torch.Tensor, w: torch.Tensor, k: int, stride: int,
         raise TypeError(f"expected int8 NHWC input (or bf16 / float32 with "
                         f"in_scale) and int8 weights, got {xq.dtype} "
                         f"{tuple(xq.shape)}, in_scale {in_scale}, {w.dtype}")
-    dense = k == 1 and stride == 1 and pad == 0
+    (top, bottom), (left, right) = plain.side_pads(pad)
+    dense = k == 1 and stride == 1 and top == bottom == left == right == 0
     if wide and not dense:
         raise ValueError("a wide input is quantized on load only by 1x1 "
                          "stride-1 convs; quantize it first")
@@ -183,9 +197,14 @@ def conv_int8(xq: torch.Tensor, w: torch.Tensor, k: int, stride: int,
                     or not v.is_contiguous()):
                 raise ValueError(f"{name} must be a contiguous float32 ({n},)")
     dev = _device_of(xq, w, oscale, bias)
+    act = int(relu)
+    if not 0 <= act <= plain.RELU6:
+        raise ValueError(f"relu must be 0, 1 or {plain.RELU6}, got {relu!r}")
+    if min(top, bottom, left, right) < 0:
+        raise ValueError(f"negative pad {pad!r}")
     if dev.type == "cpu":
         return plain.conv_int8(xq, w, k, stride, rate, pad, oscale, bias,
-                               relu, out, in_scale)
+                               act, out, in_scale)
     if not (xq.is_contiguous() and w.is_contiguous()):
         raise ValueError("conv_int8 takes contiguous NHWC input and a "
                          "contiguous (K, N) weight")
@@ -194,11 +213,12 @@ def conv_int8(xq: torch.Tensor, w: torch.Tensor, k: int, stride: int,
     if y.numel() == 0:
         return y
     wt = _transposed(w, w_nk)
-    ep = (_ptr(oscale) if mode else None, _ptr(bias) if mode else None,
-          int(bool(relu)), mode, s_next)
+    ep = (_ptr(oscale) if mode else None, _ptr(bias) if mode else None, act,
+          mode, s_next)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if dense:
+            _check_int32("M", b * h * wd)
             rc = _lib().mm_tiled_launch(
                 wide or 0, xq.data_ptr(), wt.data_ptr(), y.data_ptr(),
                 b * h * wd, n, cin, float(in_scale or 0.0), *ep, stream)
@@ -206,6 +226,6 @@ def conv_int8(xq: torch.Tensor, w: torch.Tensor, k: int, stride: int,
         else:
             rc = _lib().conv_int8_launch(
                 xq.data_ptr(), wt.data_ptr(), y.data_ptr(), *ep, b, h, wd, cin,
-                oh, ow, n, k, stride, rate, pad, stream)
+                oh, ow, n, k, stride, rate, top, left, stream)
             _launched("conv_int8", rc, (b, h, wd, cin, n, k, stride, rate))
     return y

@@ -29,9 +29,12 @@ On the pools, ``scan_iters=K`` runs K updates a dispatch (the JAX
 package's ``lax.scan`` superstep; on the card each update replays a CUDA
 graph, ``device_data.Superstep``), with the loss terms read once a
 dispatch. Otherwise losses are read (a sync) only at display intervals.
+``compute_dtype="bfloat16"`` trains in mixed precision as the JAX
+package does: float32 weights, optimizer state and snapshots, bfloat16
+convolutions (each weight cast at its conv), float32 heads and losses.
+Every backbone trains: the ResNets and the four MobileNetV2 widths.
 Options of later slices raise ``NotImplementedError`` naming their
-ROADMAP item: data parallelism and multi-window updates (16) and bfloat16
-training (12b).
+ROADMAP item: data parallelism and multi-window updates (16).
 """
 
 from __future__ import annotations
@@ -79,15 +82,15 @@ def _later_slices(data_parallel=False, windows_per_device: int = 1) -> None:
 
 def _init_model(cfg: PoseConfig, seed: int, compute_dtype,
                 device) -> PoseModel:
-    """A seeded PoseModel in float32 on ``device``."""
+    """A seeded PoseModel on ``device``: float32 weights, computing in
+    ``compute_dtype`` (default: the config's)."""
     dtype = resolve_dtype(compute_dtype if compute_dtype is not None
                           else cfg.compute_dtype)
-    if dtype != torch.float32:
-        raise NotImplementedError(
-            f"training in {dtype} (float32 weights, reduced-precision "
-            "compute) waits for ROADMAP item 12b; train in float32")
-    return init_model(cfg, torch.Generator().manual_seed(seed),
-                      torch.float32, device)
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"training computes in float32 or bfloat16, "
+                         f"not {dtype}")
+    return init_model(cfg, torch.Generator().manual_seed(seed), dtype,
+                      device, param_dtype=torch.float32)
 
 
 def dgp_video_sets(proj: ProjectConfig, dlcpath: str | Path) -> list[str]:
@@ -150,7 +153,7 @@ def _warm_start(model: PoseModel, cfg: PoseConfig, train_dir: Path,
             return ckpt_lib.restore_backbone_and_heads(model, snap_path), True
         tf_prefix = Path(train_dir) / snapshot
         if _tf_ckpt_exists(tf_prefix):
-            _import_tf(model, cfg, tf_prefix, ("resnet", "pose"),
+            _import_tf(model, cfg, tf_prefix, (_tf_scope(cfg), "pose"),
                        "TF1 snapshot")
             return model, True
     if allow_init_weights and cfg.init_weights:
@@ -158,12 +161,19 @@ def _warm_start(model: PoseModel, cfg: PoseConfig, train_dir: Path,
         if not init_prefix.is_absolute() and cfg.project_path:
             init_prefix = Path(cfg.project_path) / init_prefix
         if _tf_ckpt_exists(init_prefix):
-            _import_tf(model, cfg, init_prefix, ("resnet",), "ImageNet init")
+            _import_tf(model, cfg, init_prefix, (_tf_scope(cfg),),
+                       "ImageNet init")
             return model, True
     if snapshot:
         print(f"warning: warm-start snapshot {snapshot} not found under "
               f"{train_dir}; training from random init")
     return model, False
+
+
+def _tf_scope(cfg: PoseConfig) -> str:
+    from deepgraphpose_tpu_torch.models import tf_import
+
+    return tf_import.backbone_tf_scope(cfg.net_type)
 
 
 def _import_tf(model: PoseModel, cfg: PoseConfig, prefix: Path,

@@ -288,8 +288,6 @@ def test_pooled_augmented_runs_on_the_pools(tiny_resnet, base_project,
 @pytest.mark.parametrize("kw,item", [
     (dict(data_parallel=True), "item 16"),
     (dict(data_parallel=2), "item 16"),
-    (dict(compute_dtype=torch.bfloat16), "item 12b"),
-    (dict(compute_dtype="bfloat16"), "item 12b"),
 ])
 def test_fit_dlc_raises_for_later_slices(tiny_resnet, base_project, work,
                                          kw, item):
@@ -302,7 +300,6 @@ def test_fit_dlc_raises_for_later_slices(tiny_resnet, base_project, work,
 @pytest.mark.parametrize("kw,item", [
     (dict(data_parallel=True), "item 16"),
     (dict(windows_per_device=2), "item 16"),
-    (dict(compute_dtype="bfloat16"), "item 12b"),
     (dict(windows_per_device=4, wt=1.0, device_flow=True), "item 16"),
 ])
 def test_fit_dgp_raises_for_later_slices(tiny_resnet, base_project, work,

@@ -200,3 +200,92 @@ def test_transposed_operand_is_checked():
     for bad in (w, kept.float(), w.t()):     # shape, type, layout
         with pytest.raises(ValueError, match="\\(N, K\\) copy"):
             kernel._transposed(w, bad)
+
+
+# MobileNetV2's int8 sites (k, Cin, Cout, stride): the 3x3/2 stem and 1x1s
+# whose K and N sit below the kernel's 128-wide tiles and its K % 16 vector
+# path (K = 16, 24, 27, 32; N = 16, 24)
+MOBILE_SITES = {
+    "stem_3x3_s2": (3, 3, 32, 2),
+    "expand_k16": (1, 16, 96, 1),
+    "expand_k24": (1, 24, 144, 1),
+    "project_n24": (1, 96, 24, 1),
+    "project_n16": (1, 32, 16, 1),
+    "head": (1, 320, 1280, 1),
+}
+# even and odd sides: TF SAME pads a stride-2 conv over an even side
+# (0, 1), over an odd side (1, 1)
+MOBILE_HW = {"even": (20, 24), "odd": (21, 23), "odd_even": (25, 26)}
+
+
+def same_pads(k, stride, x):
+    from deepgraphpose_tpu_torch.models.mobilenet import same_pads as pads
+    return tuple(pads(k, stride, 1, n) for n in x.shape[1:3])
+
+
+def mobile_inputs(name, hw, seed=0):
+    k, cin, cout, stride = MOBILE_SITES[name]
+    rng = np.random.default_rng(seed)
+    x = int8(rng, (2, *MOBILE_HW[hw], cin))
+    w = int8(rng, (k, k, cin, cout))
+    return x, w, (k, stride)
+
+
+@pytest.mark.parametrize("hw", list(MOBILE_HW))
+@pytest.mark.parametrize("name", list(MOBILE_SITES))
+def test_conv_accumulator_same_pads_exact(name, hw):
+    """The plain conv with TF SAME's per-side pads against
+    ``quant._conv(..., "SAME", preferred=jnp.int32)``: int32, exactly."""
+    x, w, (k, stride) = mobile_inputs(name, hw)
+    want = np.asarray(jax_quant._conv(jnp.asarray(x), jnp.asarray(w), stride,
+                                      1, "SAME", preferred=jnp.int32))
+    pad = same_pads(k, stride, x)
+    got = kernel.conv_int8(torch.from_numpy(x),
+                           torch.from_numpy(w.reshape(-1, w.shape[-1])), k,
+                           stride, 1, pad, None, None, False, torch.int32)
+    assert got.shape == want.shape and got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    if hw == "even" and stride == 2:
+        assert pad == ((0, 1), (0, 1))
+
+
+@pytest.mark.parametrize("name", list(MOBILE_SITES))
+def test_relu6_epilogue_matches_jax(name):
+    """The epilogue's ReLU6 against the JAX package's mobile ``conv_fn``
+    (``acc * oscale + bias``, ``jax.nn.relu6``, quant.py:300-301, jitted),
+    on even sides and at sizes that put values past 6: float32 within 1
+    ulp, bf16 within 1 bf16 ulp, int8 within 1 on at most 0.1%."""
+    x, w, (k, stride) = mobile_inputs(name, "even", seed=6)
+    acc = np.asarray(jax_quant._conv(jnp.asarray(x), jnp.asarray(w), stride,
+                                     1, "SAME", preferred=jnp.int32))
+    cout = w.shape[-1]
+    rng = np.random.default_rng(7)
+    oscale = (rng.uniform(2.0, 12.0, cout) / np.abs(acc).max()).astype(
+        np.float32)
+    bias = rng.standard_normal(cout).astype(np.float32)
+
+    def want(out):
+        def f(acc, oscale, bias):
+            y = jax.nn.relu6(acc.astype(jnp.float32) * oscale + bias)
+            if isinstance(out, tuple):
+                return jax_quant._quantize_to(y, jnp.float32(out[1]))
+            return y.astype(out)
+        return np.asarray(jax.jit(f)(acc, oscale, bias).astype(jnp.float32))
+
+    args = (torch.from_numpy(x), torch.from_numpy(w.reshape(-1, cout)), k,
+            stride, 1, same_pads(k, stride, x), torch.from_numpy(oscale),
+            torch.from_numpy(bias), kernel.RELU6)
+    w32 = want(jnp.float32)
+    assert (w32 == 6.0).any() and (w32 == 0.0).any() and w32.max() == 6.0
+    got = kernel.conv_int8(*args, torch.float32).numpy()
+    assert (np.abs(got - w32) <= np.spacing(np.abs(w32))).all()
+    w16 = want(jnp.bfloat16)
+    got = kernel.conv_int8(*args, torch.bfloat16).float().numpy()
+    assert (np.abs(got - w16) <= np.abs(w16) * 2.0 ** -7).all()
+    s_next = float(np.float32(6.0 / 127))
+    w8 = want(("int8", s_next))
+    got = kernel.conv_int8(*args, ("int8", s_next)).numpy()
+    diff = np.abs(got.astype(np.int32) - w8.astype(np.int32))
+    assert diff.max() <= 1 and (diff != 0).mean() <= 1e-3
+    with pytest.raises(ValueError, match="relu must be"):
+        kernel.conv_int8(*args[:-1], 3, torch.float32)

@@ -482,6 +482,113 @@ def test_conv_int8_quantizes_wide_input_on_load(cuda_device, monkeypatch,
     assert torch.equal(got, want)
 
 
+# MobileNetV2's int8 sites (k, Cin, Cout, stride) at their TF SAME pads: the
+# 3x3/2 stem and 1x1s with K and N below the 128-wide tiles and the K % 16
+# vector path
+MOBILE_SITES = [(3, 3, 32, 2), (1, 16, 96, 1), (1, 24, 144, 1),
+                (1, 96, 24, 1), (1, 32, 16, 1), (1, 320, 1280, 1)]
+
+
+def _mobile_site_args(device, site, hw, seed=3):
+    from deepgraphpose_tpu_torch.models.mobilenet import same_pads
+
+    k, cin, cout, stride = site
+    rng = np.random.default_rng(seed)
+    w = torch.from_numpy(rng.integers(-127, 128, (k * k * cin, cout),
+                                      dtype=np.int8)).to(device)
+    oscale = torch.from_numpy((rng.uniform(2.0, 12.0, cout) / (
+        127 * 127 * k * k * cin / 8)).astype(np.float32)).to(device)
+    bias = torch.from_numpy(rng.standard_normal(cout).astype(
+        np.float32)).to(device)
+    pad = tuple(same_pads(k, stride, 1, n) for n in hw)
+    return w, k, stride, 1, pad, oscale, bias
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw", [(20, 24), (21, 23), (25, 26)],
+                         ids=["even", "odd", "odd_even"])
+@pytest.mark.parametrize("site", MOBILE_SITES)
+def test_mobilenet_sites_match_plain(cuda_device, monkeypatch, site, hw):
+    """MobileNetV2's convs with ReLU6 and TF SAME's split pads on the card
+    against the plain version: int32 exactly, float32 within 1 ulp, bf16
+    within 1 bf16 ulp, int8 within 1 on at most 1e-4; the 1x1s also on a
+    wide bf16 input quantized on load, exactly. Their small K and N take
+    the kernel's scalar loads and ragged tiles."""
+    from deepgraphpose_tpu_torch.ops import int8_gemm as gemm_plain
+    from deepgraphpose_tpu_torch.ops.kernels import int8_gemm_kernel as gk
+
+    args = _mobile_site_args(cuda_device, site, hw)
+    k, cin, cout, stride = site
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.integers(-127, 128, (3, *hw, cin),
+                                      dtype=np.int8)).to(cuda_device)
+    outs = [torch.int32, torch.float32, torch.bfloat16, ("int8", 6 / 127)]
+    wants = {str(o): gemm_plain.conv_int8(x, *args, gk.RELU6, o)
+             for o in outs}
+    wide, scale = None, None
+    if k == 1:
+        wide = (torch.randn((3, *hw, cin), device=cuda_device) * 3).to(
+            torch.bfloat16)
+        scale = float(np.float32(wide.float().abs().max().item() / 100))
+        want_wide = gemm_plain.conv_int8(wide, *args, gk.RELU6, torch.int32,
+                                         scale)
+    _forbid_plain(monkeypatch)
+    launches = dict(gk.launches)
+    for o in outs:
+        got, want = gk.conv_int8(x, *args, gk.RELU6, o), wants[str(o)]
+        torch.cuda.synchronize()
+        assert got.shape == want.shape and got.dtype == want.dtype
+        if o == torch.int32:
+            assert torch.equal(got, want)
+        elif o == torch.float32:
+            ulp = torch.from_numpy(np.spacing(
+                want.abs().cpu().numpy())).to(cuda_device)
+            assert ((got - want).abs() <= ulp).all().item()
+        elif o == torch.bfloat16:
+            err = (got.float() - want.float()).abs()
+            assert (err <= want.float().abs() * 2.0 ** -7).all().item()
+        else:
+            diff = (got.int() - want.int()).abs()
+            assert diff.max().item() <= 1
+            assert (diff != 0).float().mean().item() <= 1e-4
+    if wide is not None:
+        got = gk.conv_int8(wide, *args, gk.RELU6, torch.int32, scale)
+        assert torch.equal(got, want_wide)
+    name = "mm_tiled" if k == 1 else "conv_int8"
+    assert gk.launches[name] == launches[name] + 4 + (wide is not None)
+
+
+@pytest.mark.cuda
+def test_mobilenet_largest_site_exact(cuda_device):
+    """MobileNetV2's first expand at batch 128 of 747x832: a wide bf16
+    (128, 374, 416, 16) input through a 1x1 to 96 channels, M * N =
+    1.91e9 outputs (12% below 2^31), byte offsets past 2^32 in the int32
+    output. The int32 accumulator and the bf16 ReLU6 output against the
+    plain version, 16 frames at a time: exactly, and within 1 bf16 ulp."""
+    from deepgraphpose_tpu_torch.ops import int8_gemm as gemm_plain
+    from deepgraphpose_tpu_torch.ops.kernels import int8_gemm_kernel as gk
+
+    w, k, stride, rate, pad, oscale, bias = _mobile_site_args(
+        cuda_device, (1, 16, 96, 1), (374, 416))
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    x = (torch.randn((128, 374, 416, 16), generator=gen, device=cuda_device)
+         * 3).to(torch.bfloat16)
+    scale = 0.05
+    args = (w, k, stride, rate, pad, oscale, bias, gk.RELU6)
+    acc = gk.conv_int8(x, *args, torch.int32, scale)
+    y = gk.conv_int8(x, *args, torch.bfloat16, scale)
+    torch.cuda.synchronize()
+    assert acc.numel() == 128 * 374 * 416 * 96 > 1.9e9
+    for i in range(0, 128, 16):
+        part = slice(i, i + 16)
+        want = gemm_plain.conv_int8(x[part], *args, torch.int32, scale)
+        assert torch.equal(acc[part], want), i
+        want = gemm_plain.epilogue(want, oscale, bias, gk.RELU6,
+                                   torch.float32)
+        err = (y[part].float() - want).abs()
+        assert (err <= want.abs() * 2.0 ** -7).all().item(), i
+
+
 @pytest.mark.cuda
 def test_int8_gemm_rejects_what_it_does_not_take(cuda_device):
     from deepgraphpose_tpu_torch.ops.kernels import int8_gemm_kernel as gk
@@ -514,6 +621,25 @@ def small_fit_project(monkeypatch, tmp_path, tiny_resnet):
     monkeypatch.setattr(smoke, "FIT_FRAMES", 40)
     monkeypatch.setattr(smoke, "FIT_LABELED", 6)
     root = smoke.make_fit_project(tmp_path / "p", net_type=tiny_resnet)
+    _, cfg, train_dir = resolve_project(root)
+    model = init_model(cfg, torch.Generator().manual_seed(0), device="cpu")
+    checkpoint.save_snapshot(train_dir, 1, "final--0", model)
+    return smoke, root
+
+
+@pytest.fixture
+def small_mobile_project(monkeypatch, tmp_path):
+    """``small_fit_project`` on mobilenet_v2_0.35."""
+    from deepgraphpose_tpu_torch.core import checkpoint
+    from deepgraphpose_tpu_torch.core.paths import resolve_project
+    from deepgraphpose_tpu_torch.models.pose_model import init_model
+
+    smoke = smoke_helpers()
+    monkeypatch.setattr(smoke, "HW", (96, 112))
+    monkeypatch.setattr(smoke, "FIT_FRAMES", 40)
+    monkeypatch.setattr(smoke, "FIT_LABELED", 6)
+    root = smoke.make_fit_project(tmp_path / "p",
+                                  net_type="mobilenet_v2_0.35")
     _, cfg, train_dir = resolve_project(root)
     model = init_model(cfg, torch.Generator().manual_seed(0), device="cpu")
     checkpoint.save_snapshot(train_dir, 1, "final--0", model)
@@ -584,6 +710,23 @@ def test_superstep_graph_matches_eager(cuda_device, small_fit_project, aug,
         root, cuda_device, "snapshot-step1-final--0", k=3,
         aug_cfg=DeviceAugmentConfig.reference() if aug else None,
         bn_train=bn_train)
+    assert errors["param_rel"] <= 1e-6, errors
+    assert errors["loss_rel"] <= 1e-6, errors
+    assert errors["decode_launches"] == [3, 3], errors
+
+
+@pytest.mark.cuda
+def test_mobilenet_bf16_superstep_matches_eager(cuda_device,
+                                                small_mobile_project):
+    """The superstep of a bf16 mobilenet_v2_0.35 (float32 weights, every
+    conv's weight cast in the captured graph) against its eager twin, with
+    the reference augmentation: within 1e-6, as the ResNet case above."""
+    from deepgraphpose_tpu_torch.ops.augment_device import DeviceAugmentConfig
+
+    smoke, root = small_mobile_project
+    errors = smoke.superstep_vs_eager(
+        root, cuda_device, "snapshot-step1-final--0", k=3,
+        aug_cfg=DeviceAugmentConfig.reference(), dtype=torch.bfloat16)
     assert errors["param_rel"] <= 1e-6, errors
     assert errors["loss_rel"] <= 1e-6, errors
     assert errors["decode_launches"] == [3, 3], errors

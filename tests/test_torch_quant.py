@@ -191,16 +191,241 @@ def test_inference_only_and_needs_state(setup):
         qmodel(torch.from_numpy(images), train=True)
 
 
-@pytest.mark.parametrize("net_type", ["mobilenet_v2_1.0",
-                                      "mobilenet_v2_0.35"])
-def test_mobilenet_waits_for_its_slice(setup, net_type):
+# --------------------------------------------------------------------------
+# MobileNetV2: the dense convs int8 (ReLU6 epilogue, TF SAME pads), the
+# depthwise convs float32, no int8 chain carry
+# --------------------------------------------------------------------------
+
+MOBILE_NETS = ["mobilenet_v2_0.35", "mobilenet_v2_1.0"]
+
+
+@pytest.fixture(scope="module", params=MOBILE_NETS)
+def mobile_setup(request):
+    """As ``setup``, for a MobileNetV2 at the odd 75x83 (TF SAME pads
+    every stride-2 conv alike there; the int8 GEMM tests cover the even
+    sides)."""
+    net = request.param
+    jcfg = JaxPoseConfig(num_joints=4, net_type=net)
+    jmodel, jvars = jax_init_model(jcfg, jax.random.PRNGKey(0), HW)
+    rng = np.random.default_rng(1)
+    jvars = jax.tree_util.tree_map(np.asarray, jvars)
+    jvars["batch_stats"] = jax.tree_util.tree_map(
+        lambda x: (x * rng.uniform(0.5, 2.0, x.shape)).astype(x.dtype),
+        jvars["batch_stats"])
+    images = np.random.default_rng(0).integers(
+        0, 255, (2, *HW, 3)).astype(np.float32)
+    _, qvars = jax_quant.quantize_model(jcfg, jvars, images,
+                                        dtype=jnp.float32)
+    qvars = jax.tree_util.tree_map(np.asarray, qvars)
+    cfg = PoseConfig(num_joints=4, net_type=net)
+    model = PoseModel(cfg)
+    model.load_state_dict(state_dict_from_flax(jvars), strict=True)
+    return jcfg, jmodel, jvars, qvars, cfg, model.eval(), images
+
+
+def test_mobilenet_fold_parity(mobile_setup):
+    jcfg, _, jvars, _, cfg, model, images = mobile_setup
+    want = jax_quant.folded_backbone_weights(jvars)
+    got = quant.folded_backbone_weights(model)
+    assert set(got) == set(want)
+    assert sum(s.endswith("/depthwise") for s in got) == 17
+    for site, (w, b) in want.items():
+        np.testing.assert_allclose(got[site][0].numpy(), np.asarray(w),
+                                   rtol=1e-6, atol=0, err_msg=site)
+        np.testing.assert_allclose(got[site][1].numpy(), np.asarray(b),
+                                   rtol=1e-6, atol=1e-7, err_msg=site)
+    with torch.no_grad():
+        x = torch.from_numpy(images)
+        _, feats = quant._collect_forward(cfg, got, x)
+        nchw = (x - model.mean_pixel).permute(0, 3, 1, 2)
+        ref, _ = model.backbone(nchw)
+    ref = ref.permute(0, 2, 3, 1)
+    assert (feats - ref).abs().max() <= 1e-5 * ref.abs().max()
+    dense = quant.site_shapes(cfg.net_type)
+    assert set(dense) | set(quant.depthwise_sites(cfg.net_type)) == set(got)
+    for site, (k, cin, cout) in dense.items():
+        assert want[site][0].shape == (k, k, cin, cout), site
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mobilenet_forward_matches_jax(mobile_setup, dtype):
+    """The JAX int8 variables (``qvariables["dw"]`` included) through
+    ``quant_state_from_flax``: the backbone's end points (every block's
+    output and the features) bit for bit, and the logits within 1e-5 of
+    the largest at float32 (measured 1.8e-6) and within
+    one bfloat16 step of the largest (2^-8; measured 0 and 2.8e-4) at
+    bfloat16, whose deconv heads round their sums to bfloat16.
+
+    At float32 the reference is the jitted JAX model, whose epilogue
+    ``acc * oscale + bias`` XLA contracts into one fused multiply-add, as
+    the port's does (op by op JAX rounds it twice: 8.6e-4 apart at the
+    features). At bfloat16 it is the JAX model op by op: jitted, XLA keeps
+    the bfloat16 carry wider than bfloat16 inside its fusions (3.5e-2 to
+    5.7e-2 apart at the end points), while the port, as the op-by-op
+    model, rounds it to bfloat16 where the model says so."""
+    jcfg, _, _, qvars, cfg, _, images = mobile_setup
+    jdtype = getattr(jnp, dtype)
+    qm = jax_quant.QuantizedPoseModel(jcfg, dtype=jdtype, carry_dtype=jdtype)
+    x = jnp.asarray(images) - jnp.asarray(jcfg.mean_pixel, jnp.float32)
+
+    def walk(x):
+        return jax_quant._int8_backbone(jcfg, qvars, x, carry_dtype=jdtype)[1]
+
+    if dtype == "float32":
+        want = jax.jit(qm.apply)(qvars, jnp.asarray(images))
+        jep = jax.jit(walk)(x)
+        tol = 1e-5
+    else:
+        with jax.disable_jit():
+            want = qm.apply(qvars, jnp.asarray(images))
+            jep = walk(x)
+        tol = 2.0 ** -8
+    qmodel = quant.QuantizedPoseModel(cfg, dtype=dtype, carry_dtype=dtype)
+    qmodel.load_state_dict(quant_state_from_flax(qvars), strict=True)
+    assert set(qmodel.dw) == set(qvars["dw"])
+    with torch.no_grad():
+        got = qmodel.eval()(torch.from_numpy(images))
+        _, tep = quant._int8_backbone(
+            cfg, qmodel.sites, torch.from_numpy(np.array(x)),
+            carry_dtype=qmodel.carry_dtype, dw=qmodel.dw)
+    assert set(tep) == set(jep)
+    for key, value in jep.items():
+        np.testing.assert_array_equal(
+            tep[key].float().numpy(), np.asarray(value.astype(jnp.float32)),
+            err_msg=key)
+    assert set(got) == set(want) == {"part_pred", "locref"}
+    for key in want:
+        g, w = got[key], np.asarray(want[key])
+        assert g.dtype == torch.float32 and g.is_contiguous()
+        err = np.abs(g.numpy() - w).max() / np.abs(w).max()
+        assert err <= tol, (key, err)
+
+
+def test_mobilenet_quantize_model_matches_jax(mobile_setup):
+    """The port's own quantize_model: JAX's weights and scales (``qw``
+    identical, ``act_scale`` and ``oscale`` within 1e-5 relative, bias
+    within 1e-2 of the largest, as for ResNet-50 above), the depthwise
+    sites' folded float weights within 1e-6; and its int8 forward within
+    tests/test_quant.py's bounds of the float32 model (relative error <
+    0.25, correlation > 0.99)."""
+    jcfg, jmodel, jvars, qvars, cfg, model, images = mobile_setup
+    qmodel = quant.quantize_model(cfg, model, images, dtype=torch.float32)
+    want = quant_state_from_flax(qvars)
+    assert set(qmodel.sites) == set(qvars["qw"])
+    assert set(qmodel.dw) == set(qvars["dw"])
+    bias_scale = max(np.abs(v).max() for v in qvars["bias"].values())
+    for site, q in qmodel.sites.items():
+        torch.testing.assert_close(q.qw, want[f"sites.{site}.qw"], rtol=0,
+                                   atol=0)
+        a_want = want[f"sites.{site}._extra_state"]["act_scale"]
+        assert abs(q.act_scale - a_want) <= 1e-5 * a_want, site
+        torch.testing.assert_close(q.oscale, want[f"sites.{site}.oscale"],
+                                   rtol=1e-5, atol=0)
+        err = (q.bias - want[f"sites.{site}.bias"]).abs().max().item()
+        assert err <= 1e-2 * bias_scale, site
+    for site, d in qmodel.dw.items():
+        for name in ("weight", "bias"):
+            torch.testing.assert_close(getattr(d, name),
+                                       want[f"dw.{site}.{name}"],
+                                       rtol=1e-6, atol=1e-7)
+    _kernel_copy_follows_qw(qmodel)
+    ref = jmodel.apply(jvars, jnp.asarray(images))
+    with torch.no_grad():
+        out = qmodel(torch.from_numpy(images))
+    for key in ("part_pred", "locref"):
+        r, q = np.asarray(ref[key]), out[key].numpy()
+        assert np.isfinite(q).all()
+        assert np.abs(q - r).max() / np.abs(r).max() < 0.25, key
+        assert np.corrcoef(r.ravel(), q.ravel())[0, 1] > 0.99, key
+
+
+def test_mobilenet_depthwise_sites_match_jax(mobile_setup):
+    """Each float depthwise site on the input the port's walk gives it,
+    against the JAX package's ``dw_fn`` (quant.py:323-327): within 1e-6
+    of the largest output (float32 sums of 9 products)."""
+    jcfg, _, _, qvars, cfg, _, images = mobile_setup
+    qmodel = quant.QuantizedPoseModel(cfg, dtype=torch.float32,
+                                      carry_dtype=torch.float32)
+    qmodel.load_state_dict(quant_state_from_flax(qvars), strict=True)
+    seen = []
+    forward = quant.DepthwiseSite.forward
+
+    def record(site, x, stride, rate, carry):
+        y = forward(site, x, stride, rate, carry)
+        seen.append((site, x, stride, rate, y))
+        return y
+
+    names = {id(m): n for n, m in qmodel.dw.items()}
+    try:
+        quant.DepthwiseSite.forward = record
+        with torch.no_grad():
+            qmodel(torch.from_numpy(images))
+    finally:
+        quant.DepthwiseSite.forward = forward
+    assert len(seen) == 17
+    assert any(s == 2 for _, _, s, _, _ in seen)
+    for site, x, stride, rate, y in seen:
+        dw = qvars["dw"][names[id(site)]]
+        want = jax.nn.relu6(jax_quant._conv(
+            jnp.asarray(x.numpy()), jnp.asarray(dw["w"]), stride, rate,
+            "SAME", groups=dw["w"].shape[-1]) + dw["b"])
+        want = np.asarray(want)
+        assert y.shape == want.shape
+        assert np.abs(y.numpy() - want).max() <= 1e-6 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("net_type", MOBILE_NETS)
+def test_mobilenet_residual_int8_raises(setup, net_type):
     _, _, _, _, model, images = setup
     cfg = PoseConfig(num_joints=4, net_type=net_type)
-    with pytest.raises(NotImplementedError, match="MobileNetV2 slice"):
-        quant.QuantizedPoseModel(cfg)
-    with pytest.raises(NotImplementedError, match="MobileNetV2 slice"):
-        quant.quantize_model(cfg, model, images)
     assert not quant.supports_residual_int8(net_type)
+    with pytest.raises(NotImplementedError, match="residual_int8"):
+        quant.QuantizedPoseModel(cfg, residual_int8=True)
+    mobile = PoseModel(cfg).eval()
+    with pytest.raises(NotImplementedError, match="residual_int8"):
+        quant.quantize_model(cfg, mobile, images, residual_int8=True)
+    with pytest.raises(NotImplementedError, match="vit_b16"):
+        quant.QuantizedPoseModel(PoseConfig(num_joints=4, net_type="vit_b16"))
+
+
+def test_mobilenet_estimate_pose_with_jax_int8_state_matches_jax(
+        synthetic_project, tmp_path):
+    """``estimate_pose`` over the synthetic project's video with the JAX
+    package's int8 mobilenet_v2_1.0 (calibrated on 16 of its frames,
+    float32 carry and heads in both): x / y within 1e-2 px and the
+    likelihood within 1e-3, as for ResNet-50 above."""
+    from deepgraphpose_tpu.infer import predict as jax_predict
+    from deepgraphpose_tpu_torch.infer import predict
+
+    video = synthetic_project[0] + "/videos/synthvid.avi"
+    net = "mobilenet_v2_1.0"
+    jcfg = JaxPoseConfig(num_joints=3, net_type=net)
+    _, jvars = jax_init_model(jcfg, jax.random.PRNGKey(0), (64, 80))
+    jvars = jax.tree_util.tree_map(np.asarray, jvars)
+    head = jvars["params"]["part_pred"]["block4"]
+    head["kernel"] = head["kernel"] * np.float32(0.1)
+    head["bias"] = head["bias"] * np.float32(0.1)
+    calib = quant.calib_frames_from_video(video, 16)
+    _, qvars = jax_quant.quantize_model(jcfg, jvars, calib,
+                                        dtype=jnp.float32)
+    f32 = dict(dtype=jnp.float32, carry_dtype=jnp.float32)
+    kw = dict(save_pose=False, batch_size=8, max_frames=20)
+    want = jax_predict.estimate_pose(
+        None, tmp_path / "s.ckpt", video, tmp_path, pose_cfg=jcfg,
+        model=jax_quant.QuantizedPoseModel(jcfg, **f32), variables=qvars,
+        **kw)
+    cfg = PoseConfig(num_joints=3, net_type=net)
+    qmodel = quant.QuantizedPoseModel(cfg, dtype=torch.float32,
+                                      carry_dtype=torch.float32)
+    got = predict.estimate_pose(
+        None, tmp_path / "s.ckpt", video, tmp_path, pose_cfg=cfg,
+        model=qmodel, device="cpu",
+        variables=quant_state_from_flax(
+            jax.tree_util.tree_map(np.asarray, qvars)), **kw)
+    for key in ("x", "y"):
+        np.testing.assert_allclose(got[key], want[key], rtol=0, atol=1e-2)
+    np.testing.assert_allclose(got["likelihoods"], want["likelihoods"],
+                               rtol=0, atol=1e-3)
 
 
 # --------------------------------------------------------------------------

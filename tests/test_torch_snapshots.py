@@ -266,10 +266,6 @@ def test_tf_name_map_is_the_jax_packages(tiny_resnet):
             assert got[0] == want[0]
             n += 1
     assert n == 271      # every ResNet-50 weight, BN leaf and head
-    with pytest.raises(NotImplementedError, match="item 15"):
-        tf_import.tf_name_for_path(
-            ("params", "MobileNetV2_0", "conv_stem", "kernel"),
-            "mobilenet_v2_1.0")
 
 
 def test_tf_checkpoint_imports_like_jax(tiny_resnet, work):
