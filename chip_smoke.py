@@ -112,6 +112,23 @@ last line is then never printed:
     against the CPU (within twice the CPU float32 run's distance from the
     CPU float64 run, or 1e-5 of the largest value), skip-if-final, and
     ``estimate_pose`` from the step-2 final snapshot;
+13b. analysis: what users run after training, on the fit project and
+    its step-2 final snapshot, each path's launches counted from 0:
+    ``analyze_videos`` full frame (its trajectories, read back from the
+    CSV, within 1e-4 px of the fit phase's ``estimate_pose``), with
+    dynamic=(True, 0.5, 10), with num_outputs=3 (the DLC top-k decode: no
+    decode kernel; its first peak is the argmax decode of the same heads,
+    and the card's top-k locations equal, its values within 1e-5 of, the
+    same decode of the same heads on the CPU) and with preset="fast"
+    (scale 0.75 + residual int8: ``mm_tiled`` and ``conv_int8``);
+    ``analyze_time_lapse_frames`` over the labeled frames;
+    ``evaluate_network``, ``evaluate_dgp(decode="dlc")`` (no decode
+    kernel), ``evaluate_dgp(quantize=True)`` (both GEMM routes), and
+    ``evaluate_dgp`` in float32 (TF32 off) against the same call on the
+    CPU, within 1e-2 px; the wall seconds and frames/s of the full-frame
+    and the fast analysis (video decode and CSV writes included). Where
+    h5py is absent the H5 writers become recorders for the phase (the
+    package raises without h5py, as the JAX package does);
 14. profile: where the device time goes, from torch.profiler over 3
     full-frame batches, 3 MobileNetV2 full-frame batches (its depthwise
     convs a class of their own), 3 tracked-crop steps, 3 int8 full-frame
@@ -126,8 +143,9 @@ last line is then never printed:
 
 Every kernel wrapper counts its launches (a superstep adds each graph
 replay's captured launches); the counts are set to 0 just before each
-main-path run (phases 4, 5, 8, 10, 10b, 12 and each fit run) and read just
-after, and every kernel that the path runs must show launches > 0. The
+main-path run (phases 4, 5, 8, 10, 10b, 12, each fit run and each
+analysis path) and read just after, and every kernel that the path runs
+must show launches > 0. The
 weights are random, from a seeded torch.Generator; nothing is read from
 disk but the repository's own sources and the files the fit phase
 writes.
@@ -1930,7 +1948,7 @@ def mobilenet_fit_runs(common: dict, step2: dict, root) -> list:
             fit_run("mobilenet_fit_dgp", fit.fit_dgp, kw2, TRAIN_BATCH, 1)]
 
 
-def phase_fit(device, workdir) -> tuple[list, dict]:
+def phase_fit(device, workdir) -> tuple[list, tuple, dict]:
     """The training entry points with their defaults on the fit project at
     747x832: fit_dlc (labeled pool, scale jitter on the card),
     fit_dgp_labeledonly and fit_dgp(batch_size=10) (frame pools, the
@@ -1941,8 +1959,9 @@ def phase_fit(device, workdir) -> tuple[list, dict]:
     beside their eager twins; then estimate_pose from the step-2 final
     snapshot on the project's video; the card checks (pooled against
     host-fed update, augmentation card against CPU, the flow card against
-    CPU, skip-if-final). Returns (the run lines, the steps the profile
-    traces: name -> (step, inputs, updates a call))."""
+    CPU, skip-if-final). Returns (the run lines, (the estimate_pose result,
+    the step-2 final snapshot it read), the steps the profile traces:
+    name -> (step, inputs, updates a call))."""
     import numpy as np
 
     from deepgraphpose_tpu_torch.infer.predict import estimate_pose
@@ -2036,12 +2055,263 @@ def phase_fit(device, workdir) -> tuple[list, dict]:
         raise AssertionError(f"fit checks failed: {out}")
     reference = DeviceAugmentConfig.reference()
     pooled = dgp_window(root, device, "snapshot-step1-final--0", reference)
-    return runs, {
+    return runs, (pose, final), {
         "fit_dgp_pooled_step2": (*pooled["pooled"], 1),
         "fit_dgp_scan_step2": (*scan_window(root, device,
                                             "snapshot-step1-final--0",
                                             reference), SCAN_K),
         "fit_dgp_flow_step2": (*flow_win["pooled"], 1)}
+
+
+ANALYSIS_EQUAL_PX = 1e-4       # analyze_videos against estimate_pose
+TOPK_VALUE_TOL = 1e-5          # top-k values, card against the CPU
+EVAL_CARD_CPU_PX = 1e-2        # evaluate_dgp float32, card against the CPU
+
+
+@contextlib.contextmanager
+def h5_writes():
+    """Where h5py is absent (the card host), the two H5 writers of
+    ``infer/export.py`` become recorders for the block: the package itself
+    raises without h5py, as the JAX package does, and the phase reads the
+    trajectories back from the CSVs either way. Yields the note the phase
+    line prints and the paths the recorders took."""
+    import importlib.util
+
+    from deepgraphpose_tpu_torch.infer import export
+
+    if importlib.util.find_spec("h5py") is not None:
+        yield "written", []
+        return
+    recorded = []
+    saved = export.write_pose_h5, export.write_multi_pose_h5
+    export.write_pose_h5 = lambda path, *a, **k: recorded.append(str(path))
+    export.write_multi_pose_h5 = (
+        lambda path, *a, **k: recorded.append(str(path)))
+    try:
+        yield "not written: h5py absent on this host", recorded
+    finally:
+        export.write_pose_h5, export.write_multi_pose_h5 = saved
+
+
+def counted(fn, *args, **kwargs) -> tuple:
+    """(result, wall seconds, every kernel's launches) of one call, the
+    counts set to 0 just before it and read just after a sync."""
+    import torch
+
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, read_launches()
+
+
+def top_k_card_vs_cpu(root, snapshot: Path, video: Path, k: int,
+                      device) -> dict:
+    """The part_pred and locref heads of every frame of ``video`` from
+    ``snapshot``, batched and padded as ``analyze_videos`` batches them;
+    on the card the argmax decode, the top-k locations and the top-k
+    decode, and the same plain decode of the same heads copied to the
+    CPU. Returns the argmax decode (T, nj, 3) and the largest differences
+    (locations counted, values in px / likelihood)."""
+    import numpy as np
+    import torch
+
+    from deepgraphpose_tpu_torch.core.device import resolve_dtype
+    from deepgraphpose_tpu_torch.core.paths import resolve_project
+    from deepgraphpose_tpu_torch.data.prefetch import host_to_device
+    from deepgraphpose_tpu_torch.data.video import (VideoReader,
+                                                    iter_frame_batches)
+    from deepgraphpose_tpu_torch.infer.predict import (dlc_heads,
+                                                       forward_heads,
+                                                       load_model)
+    from deepgraphpose_tpu_torch.ops import decode
+
+    _, cfg, _ = resolve_project(root)
+    model = load_model(cfg, snapshot, resolve_dtype(cfg.compute_dtype),
+                       device)
+    bs = cfg.infer_batch_size
+    reader = VideoReader(video)
+    argmax, moved, worst = [], 0, 0.0
+    for _, block in iter_frame_batches(reader, bs):
+        n = block.shape[0]
+        arr = np.concatenate([block, block[-1:].repeat(bs - n, 0)])
+        heads = forward_heads(model, host_to_device(arr, device),
+                              heads=dlc_heads(model))
+        part, loc = heads["part_pred"], heads.get("locref")
+        scmap, _ = decode.extract_cnn_output(part, loc, cfg.locref_stdev)
+        card = (decode.get_top_values(scmap, k),
+                decode.multi_pose_decode(part, loc, k, cfg.stride,
+                                         cfg.locref_stdev))
+        argmax.append(decode.argmax_pose_decode(
+            part, loc, cfg.stride, cfg.locref_stdev)[:n].cpu().numpy())
+        part, loc = part.cpu(), loc.cpu() if loc is not None else None
+        scmap, _ = decode.extract_cnn_output(part, loc, cfg.locref_stdev)
+        plain = (decode.get_top_values(scmap, k),
+                 decode.multi_pose_decode(part, loc, k, cfg.stride,
+                                          cfg.locref_stdev))
+        for got, want in zip(card[0], plain[0]):
+            moved += int((got.cpu() != want).sum())
+        worst = max(worst, (card[1].cpu() - plain[1]).abs().max().item())
+    reader.close()
+    return {"argmax": np.concatenate(argmax), "locations_moved": moved,
+            "max_abs_err": worst}
+
+
+def phase_analysis(device, root, pose: dict, final: Path) -> dict:
+    """What users run after training, on the fit project and its step-2
+    final snapshot ``final``, which analyze_videos must resolve itself
+    (``pose``: the estimate_pose of ``fit_checks``): analyze_videos
+    full frame (trajectories equal to ``pose``), dynamic=(True, 0.5, 10),
+    num_outputs=3 (the DLC top-k decode: no decode kernel; the first peak
+    equal to the argmax decode of the same heads, the card's top-k against
+    the plain decode on the CPU), preset="fast" (scale 0.75 + residual
+    int8: both GEMM routes), analyze_time_lapse_frames over the labeled
+    frames, evaluate_network, evaluate_dgp with decode="dlc" and with
+    quantize=True, and evaluate_dgp in float32 (TF32 off) on the card
+    against the CPU. Every path counts its launches from 0. Returns
+    {path: launches}."""
+    import numpy as np
+    import torch
+
+    from deepgraphpose_tpu_torch.core.paths import resolve_project
+    from deepgraphpose_tpu_torch.data.video import VideoReader
+    from deepgraphpose_tpu_torch.evaluation import metrics
+    from deepgraphpose_tpu_torch.infer import analyze
+    from deepgraphpose_tpu_torch.infer.export import load_pose_from_dlc
+
+    t_phase = time.perf_counter()
+    config = root / "config.yaml"
+    video = root / "videos_dgp" / "synthvid.avi"
+    out = root / "analysis"
+    proj, _, train_dir = resolve_project(root)
+    snapshot = analyze._resolve_snapshot(train_dir, proj, None)[0]
+    reader = VideoReader(video)
+    frames, video_hw = reader.n_frames, [reader.height, reader.width]
+    reader.close()
+    launches, seconds, line = {}, {}, {"phase": "analysis"}
+
+    def run(path, fn, *args, **kwargs):
+        result, seconds[path], launches[path] = counted(fn, *args, **kwargs)
+        return result
+
+    def trajectories(folder, stem):
+        """(T, columns, 3) x, y, likelihood from a DLC-format CSV."""
+        table = load_pose_from_dlc(str(folder / f"{stem}.csv"))
+        return np.stack([table[k] for k in ("x", "y", "likelihoods")], -1)
+
+    with h5_writes() as (h5_note, h5_recorded), \
+            contextlib.redirect_stdout(sys.stderr):
+        scorer = run("analyze_videos", analyze.analyze_videos, config,
+                     [video], destfolder=out / "full", device=device)
+        stem = f"{video.stem}{scorer}"
+        full = trajectories(out / "full", stem)
+        want = np.stack([pose["x"], pose["y"], pose["likelihoods"]], -1)
+        run("analyze_videos_dynamic", analyze.analyze_videos, config,
+            [video], destfolder=out / "dynamic", dynamic=(True, 0.5, 10),
+            device=device)
+        dynamic = trajectories(out / "dynamic", stem)
+        run("analyze_videos_top3", analyze.analyze_videos, config, [video],
+            destfolder=out / "top3", num_outputs=3, device=device)
+        top3 = trajectories(out / "top3", stem)
+        topk = top_k_card_vs_cpu(root, snapshot, video, 3, device)
+        run("analyze_videos_fast", analyze.analyze_videos, config, [video],
+            destfolder=out / "fast", preset="fast", device=device)
+        fast = trajectories(out / "fast", stem)
+        labeled = root / "labeled-data" / "synthvid"
+        run("analyze_time_lapse_frames", analyze.analyze_time_lapse_frames,
+            config, labeled, frametype=".png", device=device)
+        lapse = trajectories(labeled, f"{labeled.name}{scorer}")
+        network = run("evaluate_network", metrics.evaluate_network, config,
+                      device=device)[0]
+        csv_rows = (root / "evaluation-results" / "iteration-0"
+                    / "CombinedEvaluation-results.csv").read_text(
+                        ).strip().splitlines()
+        dlc = run("evaluate_dgp_dlc", metrics.evaluate_dgp, config,
+                  snapshot, decode="dlc", device=device)
+        int8 = run("evaluate_dgp_int8", metrics.evaluate_dgp, config,
+                   snapshot, quantize=True, device=device)
+        f32 = run("evaluate_dgp_f32", metrics.evaluate_dgp, config,
+                  snapshot, compute_dtype=torch.float32, device=device)
+        t0 = time.perf_counter()
+        f32_cpu = metrics.evaluate_dgp(config, snapshot,
+                                       compute_dtype=torch.float32,
+                                       device="cpu")
+        cpu_s = time.perf_counter() - t0
+
+    first_peak = top3.reshape(frames, -1, 3, 3)[:, :, 0]   # (T, nj, k, 3)
+    decode = {p: c["softargmax_likelihood"] for p, c in launches.items()}
+    errors = [r[key] for r in (network, dlc, int8, f32)
+              for key in ("train_error",)]
+    line.update({
+        "video": {"frames": frames, "hw": video_hw},
+        "snapshot": snapshot.name, "scorer": scorer,
+        "evaluate_network_snapshot": network["snapshot"],
+        "h5": h5_note, "h5_recorded": len(h5_recorded),
+        "first_number_no_limit": {
+            path: {"seconds": seconds[path],
+                   "frames_per_s": frames / seconds[path]}
+            for path in ("analyze_videos", "analyze_videos_fast")},
+        "seconds": seconds, "cpu_evaluate_s": cpu_s,
+        "full_vs_estimate_pose_px": float(
+            np.abs(full[..., :2] - want[..., :2]).max()),
+        "full_vs_estimate_pose_lik": float(
+            np.abs(full[..., 2] - want[..., 2]).max()),
+        "dynamic_shape": list(dynamic.shape),
+        "top3_first_peak_vs_argmax": float(
+            np.abs(first_peak - topk["argmax"]).max()),
+        "top3_card_vs_cpu": {"locations_moved": topk["locations_moved"],
+                             "max_abs_err": topk["max_abs_err"]},
+        "fast_shape": list(fast.shape), "time_lapse_rows": len(lapse),
+        "train_error_px": {"evaluate_network": network["train_error"],
+                           "dlc": dlc["train_error"],
+                           "int8": int8["train_error"],
+                           "f32": f32["train_error"]},
+        "combined_csv_rows": len(csv_rows) - 1,
+        "f32_card_vs_cpu_px": float(np.nanmax(
+            np.abs(f32["pred_xy"] - f32_cpu["pred_xy"]))),
+        "launches": launches, "phase_s": time.perf_counter() - t_phase})
+    emit(line)
+    failed = [name for name, ok in {
+        "the step-2 final snapshot": snapshot == final,
+        "full frame equals estimate_pose": (
+            full.shape == want.shape
+            and line["full_vs_estimate_pose_px"] <= ANALYSIS_EQUAL_PX
+            and line["full_vs_estimate_pose_lik"] <= ANALYSIS_EQUAL_PX),
+        "dynamic finite": (dynamic.shape[0] == frames
+                           and np.isfinite(dynamic).all()),
+        "top3 first peak is the argmax": (
+            line["top3_first_peak_vs_argmax"] <= TOPK_VALUE_TOL),
+        "top3 card against CPU": (
+            topk["locations_moved"] == 0
+            and topk["max_abs_err"] <= TOPK_VALUE_TOL),
+        "fast finite": fast.shape[0] == frames and np.isfinite(fast).all(),
+        "time lapse": (len(lapse) == FIT_LABELED
+                       and np.isfinite(lapse).all()),
+        "errors finite": bool(np.isfinite(errors).all()),
+        "combined csv": (len(csv_rows) >= 2 and csv_rows[-1].startswith(
+            network["snapshot"] + ",")),
+        "f32 card against CPU": (
+            line["f32_card_vs_cpu_px"] <= EVAL_CARD_CPU_PX),
+        "decode on its paths": all(decode[p] > 0 for p in (
+            "analyze_videos", "analyze_videos_dynamic",
+            "analyze_videos_fast", "analyze_time_lapse_frames",
+            "evaluate_network", "evaluate_dgp_int8", "evaluate_dgp_f32")),
+        "no decode on the DLC decodes": (
+            decode["analyze_videos_top3"] == 0
+            and decode["evaluate_dgp_dlc"] == 0),
+        "GEMM routes on the int8 paths": all(
+            launches[p][r] > 0 for p in ("analyze_videos_fast",
+                                         "evaluate_dgp_int8")
+            for r in ("mm_tiled", "conv_int8")),
+        "no GEMM on the float paths": all(
+            launches[p][r] == 0 for p in launches
+            if p not in ("analyze_videos_fast", "evaluate_dgp_int8")
+            for r in ("mm_tiled", "conv_int8")),
+    }.items() if not ok]
+    if failed:
+        raise AssertionError(f"analysis checks failed: {failed}")
+    return launches
 
 
 def kernel_class(name: str) -> str:
@@ -2244,13 +2514,16 @@ def main() -> int:
     phase_train_parity(device)
     train_lines, train_step2 = phase_train(device)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_fit_") as workdir:
-        fit_lines, fit_steps = phase_fit(device, workdir)
+        fit_lines, (pose, final), fit_steps = phase_fit(device, workdir)
+        analysis = phase_analysis(device, Path(workdir) / "fit_project",
+                                  pose, final)
         phase_profile(cfg, device, model, qmodel, train_step2, fit_steps,
                       (mobile["cfg"], mobile["model"]))
 
     by_path = {name: path["launches"] for name, path in int8_paths.items()}
     by_path.update({line["phase"]: line["launches"] for line in train_lines})
     by_path.update({line["run"]: line["launches"] for line in fit_lines})
+    by_path.update(analysis)
     decode_by_path = {"full_frame": full_launches,
                       "tracked_crop": crop_launches,
                       "mobilenet_full_frame": mobile["full_launches"],

@@ -12,7 +12,11 @@ steps (``train/steps.py``) from frame pools on the card with on-card
 augmentation (``train/device_data.py``) or from batches assembled on the
 host (``data/batcher.py``), decode the objective's maps on the same
 kernel, and write snapshots in the JAX package's format; in float32 or in
-bfloat16 mixed precision (float32 weights). The module
+bfloat16 mixed precision (float32 weights). After training, what users
+run: ``analyze_videos`` (DLC-scorer CSV/H5, the DLC top-k decode for
+``num_outputs > 1``), ``evaluate_network`` / ``evaluate_dgp`` (px error
+against the labels), ``filterpredictions``, ``extract_outlier_frames`` and
+``analyzeskeleton``. The module
 layout and public names follow ``deepgraphpose_tpu``, which stays the
 reference; this package imports nothing of it, nor JAX. Entry points run on the card unless the caller
 passes ``device="cpu"``.
@@ -31,6 +35,20 @@ _LAZY_API = {
     "fit_dgp_labeledonly": ("deepgraphpose_tpu_torch.train.fit",
                             "fit_dgp_labeledonly"),
     "fit_dgp": ("deepgraphpose_tpu_torch.train.fit", "fit_dgp"),
+    "evaluate_dgp": ("deepgraphpose_tpu_torch.evaluation.metrics",
+                     "evaluate_dgp"),
+    "analyze_videos": ("deepgraphpose_tpu_torch.infer.analyze",
+                       "analyze_videos"),
+    "analyze_time_lapse_frames": ("deepgraphpose_tpu_torch.infer.analyze",
+                                  "analyze_time_lapse_frames"),
+    "evaluate_network": ("deepgraphpose_tpu_torch.evaluation.metrics",
+                         "evaluate_network"),
+    "filterpredictions": ("deepgraphpose_tpu_torch.evaluation.filtering",
+                          "filterpredictions"),
+    "extract_outlier_frames": ("deepgraphpose_tpu_torch.evaluation.outliers",
+                               "extract_outlier_frames"),
+    "analyzeskeleton": ("deepgraphpose_tpu_torch.evaluation.skeleton",
+                        "analyzeskeleton"),
 }
 
 

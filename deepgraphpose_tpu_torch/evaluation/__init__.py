@@ -1,0 +1,1 @@
+"""evaluation layer of the PyTorch port (see the package docstring)."""

@@ -61,6 +61,67 @@ def write_pose_h5(path: str | Path, scorer: str, joints_names: list,
             g.create_dataset("index", data=np.array(index, dtype="S"))
 
 
+def read_pose_table(path: str | Path) -> tuple[str, list, dict, list]:
+    """(scorer, bodyparts, {'x','y','likelihoods'}, index) from a pose .h5."""
+    import h5py
+
+    with h5py.File(str(path), "r") as f:
+        g = f["df_with_missing"]
+        data = g["data"][()]
+        scorer = g.attrs.get("scorer", "")
+        if isinstance(scorer, bytes):
+            scorer = scorer.decode()
+        bodyparts = [b.decode() if isinstance(b, bytes) else str(b)
+                     for b in g["bodyparts"][()]]
+        index = [i.decode() if isinstance(i, bytes) else i
+                 for i in g["index"][()]]
+    labels = {"x": data[:, 0::3], "y": data[:, 1::3],
+              "likelihoods": data[:, 2::3]}
+    return scorer, bodyparts, labels, index
+
+
+def export_multi_pose_like_dlc(pose: np.ndarray, scorer: str,
+                               joints_names: list, save_file: str) -> None:
+    """num_outputs > 1 export of (T, nj, k, 3) [x, y, likelihood] per peak.
+
+    Columns as the reference names them (ref: predict_videos.py:188-196):
+    per joint ['x', 'y', 'likelihood', 'x2', 'y2', 'likelihood2', ...],
+    the first peak unsuffixed. Writes <save_file>.csv and <save_file>.h5
+    (``write_multi_pose_h5``).
+    """
+    t, nj, k, _ = pose.shape
+    suffixes = [""] + [str(s + 1) for s in range(1, k)]
+    labs = [f"{ax}{s}" for s in suffixes for ax in ("x", "y", "likelihood")]
+    flat = pose.reshape(t, nj * 3 * k)       # peak-major within a joint
+    with open(save_file + ".csv", "w", newline="") as f:
+        f.write("scorer," + ",".join([scorer] * nj * 3 * k) + "\n")
+        f.write("bodyparts," + ",".join(
+            [bp for bp in joints_names for _ in range(3 * k)]) + "\n")
+        f.write("coords," + ",".join(labs * nj) + "\n")
+        for i in range(t):
+            f.write(str(i) + "," + ",".join(repr(float(v))
+                                            for v in flat[i]) + "\n")
+    write_multi_pose_h5(save_file + ".h5", scorer, joints_names, flat, labs,
+                        k)
+
+
+def write_multi_pose_h5(path: str | Path, scorer: str, joints_names: list,
+                        flat: np.ndarray, labs: list, k: int) -> None:
+    """The multi-output table in the h5py layout of ``write_pose_h5``, with
+    an ``num_outputs`` attribute and the suffixed ``coords``."""
+    import h5py
+
+    with h5py.File(str(path), "w") as f:
+        g = f.create_group("df_with_missing")
+        g.attrs["scorer"] = scorer
+        g.attrs["num_outputs"] = k
+        g.create_dataset("data", data=flat)
+        g.create_dataset("bodyparts",
+                         data=np.array(joints_names, dtype="S"))
+        g.create_dataset("coords", data=np.array(labs, dtype="S"))
+        g.create_dataset("index", data=np.arange(flat.shape[0]))
+
+
 def load_pose_from_dlc(filename: str) -> dict:
     """Read a DLC-format trajectory CSV back into {'x','y','likelihoods'}
     (ref: eval.py:648-653 load_pose_from_dlc_to_dict)."""

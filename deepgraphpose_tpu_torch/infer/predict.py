@@ -44,23 +44,54 @@ from deepgraphpose_tpu_torch.ops.kernels.softargmax_kernel import \
 
 
 @torch.inference_mode()
-def infer_forward(model: PoseModel, cfg: PoseConfig, images_u8: torch.Tensor):
-    """uint8 images (B, H, W, 3) -> (mu_rc (B, nj, 2), likelihood (B, nj)).
-
-    Only the part_pred head runs. cuDNN autotunes each shape and never
-    uses TF32, so a float32 model computes in full float32 as the JAX
-    reference does.
-    """
+def forward_heads(model: PoseModel, images_u8: torch.Tensor,
+                  heads=("part_pred",)) -> dict:
+    """The model's float32 ``heads`` of uint8 images (B, H, W, 3). cuDNN
+    autotunes each shape and never uses TF32, so a float32 model computes
+    in full float32 as the JAX reference does."""
     cudnn = torch.backends.cudnn
     with cudnn.flags(enabled=True, benchmark=True,
                      deterministic=cudnn.deterministic, allow_tf32=False):
-        pred = model(images_u8, heads=("part_pred",))["part_pred"]
+        return model(images_u8, heads=heads)
+
+
+@torch.inference_mode()
+def infer_forward(model: PoseModel, cfg: PoseConfig, images_u8: torch.Tensor):
+    """uint8 images (B, H, W, 3) -> (mu_rc (B, nj, 2), likelihood (B, nj)).
+    Only the part_pred head runs."""
+    pred = forward_heads(model, images_u8)["part_pred"]
     return softargmax_likelihood(pred, cfg.gamma, cfg.gauss_len)
 
 
 def make_infer_fn(model: PoseModel, cfg: PoseConfig):
     """(uint8 images on the model's device) -> (mu_rc, likelihood)."""
     return functools.partial(infer_forward, model, cfg)
+
+
+def dlc_heads(model: PoseModel) -> list:
+    """The heads the DLC decodes read: part_pred, and locref where the
+    model has it."""
+    return [k for k in ("part_pred", "locref") if k in model.head_keys]
+
+
+def make_multi_infer_fn(model: PoseModel, cfg: PoseConfig, num_outputs: int):
+    """Top-k decode for num_outputs > 1 (ref: predict_videos.py num_outputs
+    path + predict.py:79-116 multi_pose_predict): (uint8 images on the
+    model's device) -> (B, nj, num_outputs, 3) [x, y, likelihood] in
+    pixels. It runs both heads and ``ops.decode.multi_pose_decode``, not
+    the soft-argmax kernel."""
+    from deepgraphpose_tpu_torch.ops.decode import multi_pose_decode
+
+    heads = dlc_heads(model)
+
+    @torch.inference_mode()
+    def fn(images_u8: torch.Tensor) -> torch.Tensor:
+        out = forward_heads(model, images_u8, heads=heads)
+        return multi_pose_decode(out["part_pred"], out.get("locref"),
+                                 num_outputs, stride=cfg.stride,
+                                 locref_stdev=cfg.locref_stdev)
+
+    return fn
 
 
 def _batch_producer(reader: VideoReader, batch_size: int,

@@ -487,9 +487,37 @@ class QuantizedPoseModel(nn.Module):
         return out
 
 
-def _collect_forward(cfg: PoseConfig, folded: dict, images):
-    """float32 forward on folded weights -> ({site: max |input|},
-    features). The features double as the fold-parity check."""
+def abs_percentile(x: torch.Tensor, q: float) -> torch.Tensor:
+    """``jnp.percentile(jnp.abs(x).ravel(), q)``: linear interpolation
+    between two order statistics at the position q / 100 * (n - 1),
+    computed in float32 as jnp.percentile defines it. (Compiled, XLA may
+    round that position one float32 step apart, by folding the division
+    into a product; the value then moves by that step times the gap
+    between the two order statistics.) The order statistics come from
+    ``torch.kthvalue``: ``torch.quantile`` refuses more than 2^24 elements,
+    and a calibration site at 747x832 holds more."""
+    flat = x.reshape(-1).to(torch.float32).abs()
+    n = flat.numel()
+    f32 = np.float32
+    pos = f32(f32(q) / f32(100)) * (f32(n) - f32(1))
+    low, high = np.floor(pos), np.ceil(pos)
+    high_weight = f32(pos - low)
+    low_weight = f32(1) - high_weight
+    low = int(min(max(low, 0), n - 1))
+    high = int(min(max(high, 0), n - 1))
+    low_value = torch.kthvalue(flat, low + 1).values
+    high_value = (low_value if high == low
+                  else torch.kthvalue(flat, high + 1).values)
+    return low_value * float(low_weight) + high_value * float(high_weight)
+
+
+def _collect_forward(cfg: PoseConfig, folded: dict, images,
+                     percentile: float | None = None):
+    """float32 forward on folded weights -> ({site: range of its input},
+    features). The range is max |x|, or with ``percentile`` (e.g. 99.9)
+    that percentile of |x|: a clipped range, so that a few outlying
+    activations do not stretch the int8 grid. The features double as the
+    fold-parity check."""
     mean = torch.tensor(cfg.mean_pixel, dtype=torch.float32,
                         device=images.device)
     x = images.to(torch.float32) - mean
@@ -499,7 +527,8 @@ def _collect_forward(cfg: PoseConfig, folded: dict, images):
 
     def conv_fn(site, x, stride, rate, relu):
         w, b = folded[site]
-        amax[site] = x.abs().amax()
+        amax[site] = (x.abs().amax() if percentile is None
+                      else abs_percentile(x, percentile))
         y = _float_conv(x, w, stride, rate,
                         _conv_pad(mobile, w.shape[0], stride, rate, x)) + b
         return act(y) if relu else y
@@ -567,17 +596,22 @@ def _exact_f32():
 
 @torch.no_grad()
 def quantize_model(cfg: PoseConfig, model, calib_images,
-                   dtype=torch.bfloat16, carry_dtype=torch.bfloat16,
+                   dtype=torch.bfloat16, calib_batch: int = CALIB_BATCH,
+                   calib_percentile: float | None = None,
+                   bias_correction: bool = True,
+                   carry_dtype=torch.bfloat16,
                    int8_carry: bool = True,
                    residual_int8: bool = False) -> QuantizedPoseModel:
     """Build the int8 model from a float ``PoseModel``, on its device.
 
     calib_images: (N, H, W, 3) uint8/f32 frames representative of the
     inference distribution (a handful from the target video suffices),
-    run CALIB_BATCH at a time. Each site's input scale is the max |x|
-    over them, and its bias takes the measured mean output shift of its
-    int8 lowering (:func:`_local_bias_stats`), as the JAX package's
-    defaults do. The weight and scale arithmetic is the JAX package's, in
+    run ``calib_batch`` at a time. Each site's input scale is the largest
+    over the batches of max |x| or, with ``calib_percentile``, of that
+    percentile of |x| (:func:`abs_percentile`). With ``bias_correction``
+    (the default) each site's bias takes the measured mean output shift of
+    its int8 lowering (:func:`_local_bias_stats`). The arguments and defaults
+    are the JAX package's, and so is the weight and scale arithmetic, in
     numpy on the host. MobileNetV2's depthwise sites keep their folded
     float32 weights.
     """
@@ -588,13 +622,14 @@ def quantize_model(cfg: PoseConfig, model, calib_images,
     calib = np.asarray(calib_images)
 
     def batches():
-        for i in range(0, len(calib), CALIB_BATCH):
-            yield torch.from_numpy(calib[i:i + CALIB_BATCH]).to(device)
+        for i in range(0, len(calib), calib_batch):
+            yield torch.from_numpy(calib[i:i + calib_batch]).to(device)
 
     amax: dict[str, float] = {}
     with _exact_f32():
         for batch in batches():
-            stats, _ = _collect_forward(cfg, folded, batch)
+            stats, _ = _collect_forward(cfg, folded, batch,
+                                        percentile=calib_percentile)
             values = torch.stack(list(stats.values())).cpu().tolist()
             for site, v in zip(stats, values):
                 amax[site] = max(amax.get(site, 0.0), float(v))
@@ -627,6 +662,8 @@ def quantize_model(cfg: PoseConfig, model, calib_images,
                           getattr(model, attr).state_dict().items()})
     qmodel.load_state_dict(state, strict=True)
     qmodel = qmodel.to(device).eval()
+    if not bias_correction:
+        return qmodel
 
     diffs: dict[str, list] = {}
     with _exact_f32():

@@ -58,7 +58,14 @@ def test_port_imports_without_jax():
     assert res.returncode == 0, res.stderr
     assert res.stdout.startswith("ok")
     assert len(port_modules()) >= 20
-    assert "deepgraphpose_tpu_torch.ops.flow_device" in port_modules()
+    assert {"deepgraphpose_tpu_torch.ops.flow_device",
+            "deepgraphpose_tpu_torch.ops.decode",
+            "deepgraphpose_tpu_torch.infer.analyze",
+            "deepgraphpose_tpu_torch.evaluation.metrics",
+            "deepgraphpose_tpu_torch.evaluation.filtering",
+            "deepgraphpose_tpu_torch.evaluation.outliers",
+            "deepgraphpose_tpu_torch.evaluation.skeleton"} <= set(
+                port_modules())
 
 
 def test_port_imports_without_tensorflow():
@@ -287,6 +294,64 @@ def test_dgp_step_on_card_matches_cpu(cuda_device, tiny_resnet, bn_train):
     errors, ok = smoke.step_parity(model, params, images, batch, bn_train,
                                    0.05, cuda_device)
     assert ok, errors
+
+
+def tied_heads(dtype, seed: int = 0):
+    """part_pred and locref heads at the full-frame maps whose scores
+    tie: float32 logits on a 0.5 grid with a saturated band, or bfloat16
+    logits of 4-12, whose sigmoid rounds mostly to 1."""
+    rng = np.random.default_rng(seed)
+    b, h, w, nj = FULL_MAPS
+    if dtype == torch.bfloat16:
+        logits = rng.integers(4, 13, (b, h, w, nj)).astype(np.float32)
+    else:
+        logits = np.round(rng.uniform(-3, 3, (b, h, w, nj)) * 2) / 2
+        logits[:, 40:50] = 30.0
+    locref = rng.standard_normal((b, h, w, 2 * nj)).astype(np.float32)
+    return (torch.from_numpy(logits.astype(np.float32)).to(dtype),
+            torch.from_numpy(locref).to(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_top_k_decode_on_card_matches_cpu(cuda_device, dtype):
+    """The DLC decodes (``ops/decode.py``) on the card against the same
+    code on the CPU, on maps full of ties at the full-frame shape: the
+    top-k locations and the argmax equal (the lower flat index first
+    among ties), the decoded values within 1e-5. The sigmoid maps agree
+    within 2.4e-7 (two float32 steps below 1: the card's and the CPU's
+    exp may round apart; equal values stay equal on each side, so the
+    ties and the order are the same)."""
+    from deepgraphpose_tpu_torch.ops import decode
+
+    part, locref = tied_heads(dtype)
+    card = [t.to(cuda_device) for t in (part, locref)]
+    scmap, _ = decode.extract_cnn_output(part, locref)
+    scmap_card, _ = decode.extract_cnn_output(*card)
+    assert (scmap_card.cpu().float() - scmap.float()).abs().max() <= 2.4e-7
+    for got, want in zip(decode.get_top_values(scmap_card, 8),
+                         decode.get_top_values(scmap, 8)):
+        assert torch.equal(got.cpu(), want)
+    for fn, kw in ((decode.argmax_pose_decode, {}),
+                   (decode.multi_pose_decode, {"num_outputs": 8})):
+        got, want = fn(*card, **kw).cpu(), fn(part, locref, **kw)
+        assert (got - want).abs().max().item() <= 1e-5
+
+
+@pytest.mark.cuda
+def test_abs_percentile_on_card_matches_cpu(cuda_device):
+    """``quantize_model(calib_percentile=)``'s statistic at the size of
+    ResNet-50's widest calibration site at 747x832 (8 frames of 374 x 416
+    x 64, above torch.quantile's 2^24 elements): the card's order
+    statistics equal the CPU's, so the values agree to float32 rounding."""
+    from deepgraphpose_tpu_torch.models.quant import abs_percentile
+
+    x = torch.randn(8, 374, 416, 64,
+                    generator=torch.Generator().manual_seed(0))
+    for q in (99.0, 99.9, 99.99):
+        want = abs_percentile(x, q).item()
+        got = abs_percentile(x.to(cuda_device), q).item()
+        assert abs(got - want) <= 1e-6 * want, (q, got, want)
 
 
 @pytest.mark.cuda

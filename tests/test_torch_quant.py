@@ -192,6 +192,107 @@ def test_inference_only_and_needs_state(setup):
 
 
 # --------------------------------------------------------------------------
+# calibration options: calib_batch, calib_percentile, bias_correction
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n,q", [(1, 50.0), (2, 50.0), (7, 99.0),
+                                 (1000, 99.9), (4097, 0.0), (4097, 100.0),
+                                 (12345, 37.5)])
+def test_abs_percentile_equals_jnp_percentile(n, q):
+    """jnp.percentile's linear interpolation, on values with ties, against
+    jnp.percentile run eagerly and compiled (as quantize_model runs it).
+    Each computes the position q / 100 * (n - 1) in float32, and the
+    three may round it a float32 step apart, so the bound is two such
+    steps times the gap between the neighbouring order statistics, plus
+    four float32 steps of the value."""
+    rng = np.random.default_rng(n)
+    x = np.round(rng.standard_normal(n) * 4, 1).astype(np.float32)
+    got = quant.abs_percentile(torch.from_numpy(x).reshape(-1, 1), q)
+    assert got.dtype == torch.float32
+    a = np.sort(np.abs(x))
+    pos = q / 100 * (n - 1)
+    lo, hi = max(int(np.floor(pos)) - 1, 0), min(int(np.ceil(pos)) + 1,
+                                                  n - 1)
+    for fn in (jnp.percentile, jax.jit(jnp.percentile)):
+        want = float(fn(jnp.abs(jnp.asarray(x)).ravel(), q))
+        tol = (2 * np.spacing(np.float32(n)) * (a[hi] - a[lo])
+               + 4 * np.spacing(np.float32(want)))
+        assert abs(got.item() - want) <= tol, (got.item(), want, tol)
+
+
+def test_abs_percentile_above_the_quantile_limit():
+    """A site above 2^24 elements, where torch.quantile refuses: the
+    order statistics still come out, against numpy's float64 percentile
+    within float32's position rounding."""
+    n = (1 << 24) + 5
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        n, dtype=np.float32))
+    with pytest.raises(RuntimeError):
+        torch.quantile(x.abs(), 0.999)
+    got = quant.abs_percentile(x, 99.9).item()
+    want = np.percentile(np.abs(x.numpy()).astype(np.float64), 99.9)
+    assert abs(got - want) <= 1e-5 * want
+
+
+def test_calibration_options_match_jax(setup):
+    """calib_batch=1 and calib_percentile=99.0 on the module's weights and
+    frames, without bias correction: the act_scales equal JAX's at the same
+    options within 1e-5 relative (the activations come from float32
+    convolutions summed in other orders) and the biases stay the folded
+    ones, as JAX's do."""
+    jcfg, jvars, _, cfg, model, images = setup
+    for kw in (dict(calib_batch=1), dict(calib_percentile=99.0),
+               dict(calib_batch=1, calib_percentile=99.0)):
+        _, qvars = jax_quant.quantize_model(jcfg, jvars, images,
+                                            dtype=jnp.float32,
+                                            bias_correction=False, **kw)
+        qvars = jax.tree_util.tree_map(np.asarray, qvars)
+        qmodel = quant.quantize_model(cfg, model, images,
+                                      dtype=torch.float32,
+                                      bias_correction=False, **kw)
+        want = quant_state_from_flax(qvars)
+        for site, q in qmodel.sites.items():
+            a_want = want[f"sites.{site}._extra_state"]["act_scale"]
+            assert abs(q.act_scale - a_want) <= 1e-5 * a_want, (kw, site)
+            torch.testing.assert_close(q.bias, want[f"sites.{site}.bias"],
+                                       rtol=1e-6, atol=1e-6)
+
+
+def test_percentile_calibration_clips_scales(setup):
+    """tests/test_quant.py's case on the port: percentile scales are no
+    larger than the max scales, and the model stays finite."""
+    _, _, _, cfg, model, images = setup
+    q_max = quant.quantize_model(cfg, model, images)
+    q_p = quant.quantize_model(cfg, model, images, calib_percentile=99.0)
+    clipped = 0
+    for site, q in q_p.sites.items():
+        assert q.act_scale <= q_max.sites[site].act_scale + 1e-12, site
+        clipped += q.act_scale < q_max.sites[site].act_scale
+    assert clipped > 0
+    with torch.no_grad():
+        out = q_p(torch.from_numpy(images))["part_pred"]
+    assert torch.isfinite(out).all()
+
+
+def test_bias_correction_changes_biases_and_not_worse(setup):
+    """tests/test_quant.py's case on the port: the correction moves the
+    biases, and the int8 part_pred is no farther from the float model's
+    (within 5%)."""
+    _, _, _, cfg, model, images = setup
+    x = torch.from_numpy(images)
+    with torch.no_grad():
+        ref = model(x)["part_pred"]
+        q_off = quant.quantize_model(cfg, model, images, dtype=torch.float32,
+                                     bias_correction=False)
+        q_on = quant.quantize_model(cfg, model, images, dtype=torch.float32)
+        assert any(not torch.equal(q_on.sites[s].bias, q_off.sites[s].bias)
+                   for s in q_on.sites)
+        err_off = (q_off(x)["part_pred"] - ref).abs().mean()
+        err_on = (q_on(x)["part_pred"] - ref).abs().mean()
+    assert err_on <= err_off * 1.05, (err_on, err_off)
+
+
+# --------------------------------------------------------------------------
 # MobileNetV2: the dense convs int8 (ReLU6 epilogue, TF SAME pads), the
 # depthwise convs float32, no int8 chain carry
 # --------------------------------------------------------------------------
