@@ -129,6 +129,33 @@ last line is then never printed:
     and the fast analysis (video decode and CSV writes included). Where
     h5py is absent the H5 writers become recorders for the phase (the
     package raises without h5py, as the JAX package does);
+13c. parallel: data parallelism and the multi-window group updates
+    (``parallel/``), on the fit project: fit_dgp(batch_size=10) one
+    window an update beside windows_per_device=2 eager and with
+    scan_iters=11 (updates/s, windows/s, frames/s, peak memory; the
+    superstep's final parameters against its eager twin's, reported),
+    then the two-window pair again under deterministic cuDNN (the same
+    code, the windows through the trunk in one call; the superstep's final
+    parameters within 1e-5 of each tensor's largest of its eager twin's);
+    two ranks on the one card
+    (this script started twice with ``--parallel-worker``, gloo, each on
+    cuda:0) against world 1 in this process: the float64 DP steps
+    (``make_dp_pooled_dgp_train_step`` with trainable batch-norm and the
+    device flow, ``make_dp_pooled_dlc_train_step`` with global-batch
+    batch-norm and the reference augmentation; ResNet-50 at 128x160, loss
+    terms 1e-5 relative, parameters and buffers 1e-5 of each tensor's
+    largest), fit_dgp(data_parallel=2) against
+    fit_dgp(windows_per_device=2) from the same seed at 747x832 (TF32
+    off, deterministic cuDNN; ``rtol=1e-4, atol=1e-5``) and
+    ``estimate_pose_multichip`` on a small video (displacement and
+    smoothed track within 1e-6 of world 1) and, each rank decoding only
+    its frames, over the fit project's 747x832 video in bfloat16 (x and y
+    within 1e-4 px of world 1, frames/s of both); whether NCCL takes two ranks
+    on one card (``--nccl-probe``, reported); then
+    ``estimate_pose_multichip`` at world 1 under an NCCL group over the
+    fit project's video in bf16 and int8: raw within 1e-4 px of
+    ``estimate_pose`` on the same snapshot and batches, smoothed within
+    1e-5 of ``ewma_reference``, frames/s;
 14. profile: where the device time goes, from torch.profiler over 3
     full-frame batches, 3 MobileNetV2 full-frame batches (its depthwise
     convs a class of their own), 3 tracked-crop steps, 3 int8 full-frame
@@ -143,8 +170,9 @@ last line is then never printed:
 
 Every kernel wrapper counts its launches (a superstep adds each graph
 replay's captured launches); the counts are set to 0 just before each
-main-path run (phases 4, 5, 8, 10, 10b, 12, each fit run and each
-analysis path) and read just after, and every kernel that the path runs
+main-path run (phases 4, 5, 8, 10, 10b, 12, each fit run, each
+analysis path and each parallel path, a rank's in its own process) and
+read just after, and every kernel that the path runs
 must show launches > 0. The
 weights are random, from a seeded torch.Generator; nothing is read from
 disk but the repository's own sources and the files the fit phase
@@ -1174,6 +1202,22 @@ def step_errors(run, ref) -> dict:
                              for k, v in ref[2].items())}
 
 
+@contextlib.contextmanager
+def deterministic():
+    """Deterministic cuDNN without autotuning, TF32 off: every process
+    picks the same algorithms for one shape."""
+    import torch
+
+    matmul_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                        deterministic=True, allow_tf32=False):
+            yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = matmul_tf32
+
+
 # one DGP step on the card against the CPU from one init and batch. In
 # float64 on both (the objective in float32, as the heads emit it) every
 # parameter and buffer within F64_PARAM_ABS and every momentum trace within
@@ -1198,17 +1242,11 @@ def step_parity(make_model, params, images, batch, bn_train: bool,
     import numpy as np
     import torch
 
-    matmul_tf32 = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        with torch.backends.cudnn.flags(enabled=True, benchmark=False,
-                                        deterministic=True, allow_tf32=False):
-            runs = [one_step(make_model(dtype, dev), params, images, batch,
-                             bn_train, lr)
-                    for dtype in (torch.float64, torch.float32)
-                    for dev in ("cpu", device)]
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = matmul_tf32
+    with deterministic():
+        runs = [one_step(make_model(dtype, dev), params, images, batch,
+                         bn_train, lr)
+                for dtype in (torch.float64, torch.float32)
+                for dev in ("cpu", device)]
     cpu64, card64, cpu32, card32 = runs
     errors = {"f64_card_vs_cpu": step_errors(card64, cpu64),
               "f32_card_vs_cpu_loss_rel": step_errors(card32, cpu32)[
@@ -2314,6 +2352,584 @@ def phase_analysis(device, root, pose: dict, final: Path) -> dict:
     return launches
 
 
+# the parallel phase: the multi-window group updates on one card, two ranks
+# sharing the card over gloo (NCCL refuses two ranks on one device; gloo's
+# all_reduce and broadcast take CUDA tensors), and time-sharded inference
+PAR_G = 2                      # windows an update
+PAR_FIT_ITERS = 6              # schedule windows of the two-rank fit runs
+PAR_STEP_REL = 1e-5            # float64 steps, two ranks against world 1
+PAR_FIT_RTOL, PAR_FIT_ATOL = 1e-4, 1e-5      # the reference's fit bound
+PAR_RAW_PX = 1e-4              # multichip raw mu against estimate_pose
+PAR_SMOOTH_TOL = 1e-5          # the smoothed track against ewma_reference
+PAR_STREAM_TOL = 1e-6          # two ranks' halo and smoothing, world 1
+PAR_STREAM_HW = (96, 112)      # the two-rank streaming video
+PAR_STREAM_FRAMES, PAR_STREAM_FPD = 40, 4
+PAR_FPD = 16                   # frames a device, full-width multichip runs
+PAR_TIMEOUT = 600              # seconds the two ranks may take
+PAR_NCCL_TIMEOUT = 90
+
+
+def free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def parallel_case(workdir, final) -> dict:
+    """The two-rank checks' inputs, saved for the ranks to load: ResNet-50
+    in float64 from ``conditioned_init`` at TRAIN_PARITY_HW; PAR_G DGP
+    windows of 3 frames over a frame pool (a limb clique, wt > 0); a step-0
+    global batch of 4 canvases; a small synthetic project with a seeded
+    snapshot for the streaming check; and the fit project's config, step-2
+    ``final`` snapshot and 747x832 video for the full-width streaming
+    run."""
+    import numpy as np
+    import torch
+
+    from deepgraphpose_tpu_torch.core import checkpoint
+    from deepgraphpose_tpu_torch.core.config import PoseConfig
+    from deepgraphpose_tpu_torch.core.paths import resolve_project
+    from deepgraphpose_tpu_torch.models.pose_model import (init_model,
+                                                           scoremap_size)
+    from deepgraphpose_tpu_torch.ops.dgp_objective import loss_params
+    from deepgraphpose_tpu_torch.utils.synthetic import make_synthetic_project
+
+    root = Path(workdir) / "fit_project"
+    cfg_kw = dict(net_type="resnet_50", num_joints=NUM_JOINTS, **STEP2)
+    cfg = PoseConfig(**cfg_kw)
+    h, w = scoremap_size(cfg, TRAIN_PARITY_HW)
+    t, g = TRAIN_PARITY_FRAMES, PAR_G
+    rng = np.random.default_rng(SEED + 20)
+    vis = np.zeros((g, t, NUM_JOINTS), np.float32)
+    vis[:, 0] = 1.0
+    targets = rng.uniform(2, min(h, w) - 3, (g, t, NUM_JOINTS, 2))
+    batch = {
+        "targets": (targets * vis[..., None]).astype(np.float32),
+        "visible_mask": vis.reshape(g, -1),
+        "hidden_mask": 1.0 - vis.reshape(g, -1),
+        "frame_mask": np.ones((g, t), np.float32),
+        "wt_batch": np.ones((g, t - 1), np.float32),
+        "pair_mask": np.ones((g, t - 1), np.float32),
+        "flow": np.zeros((g, t - 1, *TRAIN_PARITY_HW), np.float32)}
+    n = 8
+    coords = rng.uniform(8, min(TRAIN_PARITY_HW) - 8, (n, NUM_JOINTS, 2))
+    stream = Path(make_synthetic_project(
+        Path(workdir) / "stream_project", n_frames=PAR_STREAM_FRAMES,
+        n_labeled=4, hw=PAR_STREAM_HW, nj=NUM_JOINTS, seed=SEED)[0])
+    _, scfg, train_dir = resolve_project(stream)
+    scfg.net_type = "resnet_50"
+    scfg.to_yaml(train_dir / "pose_cfg.yaml")
+    snap = checkpoint.save_snapshot(
+        train_dir, 2, "stream", init_model(
+            scfg, torch.Generator().manual_seed(SEED + 21), device="cpu"))
+    case = {
+        "cfg": cfg_kw, "lr": TRAIN_LR,
+        "state": {k: v.double() if v.is_floating_point() else v
+                  for k, v in conditioned_init(cfg, SEED + 22).items()},
+        "params": loss_params(cfg, incidence(NUM_JOINTS),
+                              [targets[0, :1].astype(np.float32)], 4, 20),
+        "pool": torch.from_numpy(rng.integers(
+            0, 256, (n, *TRAIN_PARITY_HW, 3), dtype=np.uint8)),
+        "rows": torch.from_numpy(rng.integers(0, n, (g, t))),
+        "batch": {k: torch.from_numpy(v) for k, v in batch.items()},
+        "dlc": {"images": torch.from_numpy(rng.integers(
+                    0, 256, (n, *TRAIN_PARITY_HW, 3), dtype=np.uint8)),
+                "coords": torch.from_numpy(coords.astype(np.float32)),
+                "present": torch.ones(n, NUM_JOINTS),
+                "content_wh": torch.tensor(
+                    [[TRAIN_PARITY_HW[1], TRAIN_PARITY_HW[0]]] * n,
+                    dtype=torch.float32)},
+        "idxs": torch.from_numpy(rng.integers(0, n, (4,))),
+        "stream": [str(stream / "config.yaml"), str(snap),
+                   str(stream / "videos" / "synthvid.avi")],
+        "wide_stream": [str(root / "config.yaml"), str(final),
+                        str(root / "videos_dgp" / "synthvid.avi")]}
+    torch.save(case, Path(workdir) / "parallel_case.pt")
+    return case
+
+
+def dp_steps(case: dict, group) -> dict:
+    """The float64 DP steps of ``case`` in ``group`` (each rank its slice):
+    the DGP pooled step with trainable batch-norm and the device flow, and
+    the step-0 pooled step with trainable batch-norm and the reference
+    augmentation; at world 1 the step-0 step is the single-device one on
+    the global batch. Each: loss terms, parameters and buffers (float64 on
+    the CPU), launches."""
+    import types
+
+    import torch
+
+    from deepgraphpose_tpu_torch.core.config import PoseConfig
+    from deepgraphpose_tpu_torch.models.pose_model import PoseModel
+    from deepgraphpose_tpu_torch.ops.augment_device import DeviceAugmentConfig
+    from deepgraphpose_tpu_torch.parallel import train_dp
+    from deepgraphpose_tpu_torch.train import device_data as dd
+    from deepgraphpose_tpu_torch.train import steps
+
+    dev = group.device
+    cfg = PoseConfig(**case["cfg"])
+
+    def model():
+        m = PoseModel(cfg, dtype=torch.float64).to(torch.float64)
+        m.load_state_dict(case["state"])
+        return m.to(dev, memory_format=torch.channels_last)
+
+    def result(out, m, launches):
+        return {"loss": {k: v.item() for k, v in out.items()},
+                "state": {k: v.detach().to("cpu", torch.float64)
+                          for k, v in m.state_dict().items()},
+                "launches": launches}
+
+    out = {}
+    with deterministic():
+        m = model()
+        opt = steps.make_optimizer(m.parameters(), case["lr"],
+                                   clip_norm=10.0)
+        step = train_dp.make_dp_pooled_dgp_train_step(
+            m, case["params"], opt, group, None, bn_train=True,
+            device_flow=True)
+        sl = group.shard(PAR_G)
+        res, _, launches = counted(
+            step, case["pool"].to(dev), case["rows"][sl].to(dev),
+            {k: v[sl].to(dev, torch.float64) for k, v in
+             case["batch"].items()}, [None] * (sl.stop - sl.start))
+        out["dgp"] = result(res, m, launches)
+
+        m = model()
+        opt = steps.make_optimizer(m.parameters(), case["lr"])
+        aug = DeviceAugmentConfig.reference()
+        step = (train_dp.make_dp_pooled_dlc_train_step(
+                    m, cfg, opt, group, aug, bn_train=True)
+                if group.world > 1 else
+                dd.make_pooled_dlc_train_step(m, cfg, opt, aug,
+                                              bn_train=True))
+        pool = types.SimpleNamespace(**{k: v.to(dev) for k, v in
+                                        case["dlc"].items()})
+        res, _, launches = counted(
+            step, pool, case["idxs"].to(dev),
+            torch.Generator(dev).manual_seed(SEED + 23))
+        out["dlc"] = result(res, m, launches)
+    return out
+
+
+def dp_fit(root, device, **kw) -> tuple:
+    """fit_dgp on the fit project from its step-1 snapshot for
+    PAR_FIT_ITERS windows, deterministic: (final snapshot, seconds,
+    launches)."""
+    from deepgraphpose_tpu_torch.train import fit
+
+    with deterministic(), contextlib.redirect_stdout(sys.stderr):
+        return counted(fit.fit_dgp, dlcpath=root, batch_size=TRAIN_BATCH,
+                       maxiters=PAR_FIT_ITERS, displayiters=1,
+                       saveiters=1000, device=device, **kw)
+
+
+def stream_run(case: dict, group) -> tuple:
+    """estimate_pose_multichip over the small project's video in
+    ``group``, float32, smoothed, deterministic: (labels, seconds,
+    launches)."""
+    import torch
+
+    from deepgraphpose_tpu_torch.parallel.streaming import \
+        estimate_pose_multichip
+
+    with deterministic(), contextlib.redirect_stdout(sys.stderr):
+        return counted(estimate_pose_multichip, *case["stream"],
+                       Path(case["stream"][0]).parent / "pred", mesh=group,
+                       frames_per_device=PAR_STREAM_FPD, smooth=True,
+                       compute_dtype=torch.float32, save_pose=False)
+
+
+def wide_stream_run(case: dict, group) -> tuple:
+    """estimate_pose_multichip over the fit project's 747x832 video from
+    its step-2 snapshot in ``group``, bfloat16, raw, deterministic, PAR_FPD
+    frames a rank: (labels, frames/s of the loop as it prints them (rank 0
+    prints), launches)."""
+    import io
+
+    from deepgraphpose_tpu_torch.parallel.streaming import \
+        estimate_pose_multichip
+
+    printed = io.StringIO()
+    with deterministic(), contextlib.redirect_stdout(printed):
+        labels, _, launches = counted(
+            estimate_pose_multichip, *case["wide_stream"],
+            Path(case["wide_stream"][0]).parent / "videos_pred", mesh=group,
+            frames_per_device=PAR_FPD, save_pose=False,
+            compute_dtype="bfloat16")
+    rate = re.search(r"= ([\d.]+) frames/s", printed.getvalue())
+    return labels, float(rate.group(1)) if rate else None, launches
+
+
+def parallel_worker(rank: int, port: int, workdir: str) -> int:
+    """One of two ranks on the card over gloo: the DP steps, fit_dgp
+    (data_parallel=2) and the time-sharded inference of the case, small
+    and at full width; the results go to ``workdir/rank<r>.pt``."""
+    sys.path.insert(0, str(ROOT))
+    import torch
+    import torch.distributed as dist
+
+    from deepgraphpose_tpu_torch.parallel import distributed, mesh
+
+    device = distributed.initialize(f"127.0.0.1:{port}", 2, rank)
+    group = mesh.make_mesh(device=device)
+    case = torch.load(Path(workdir) / "parallel_case.pt", weights_only=False)
+    out = {"device": str(device), "backend": dist.get_backend(),
+           "world": group.world, **dp_steps(case, group)}
+    final, seconds, launches = dp_fit(Path(workdir) / "fit_project", device,
+                                      data_parallel=2, debug="_dp2")
+    out["fit"] = {"final": str(final), "seconds": seconds,
+                  "launches": launches}
+    labels, seconds, launches = stream_run(case, group)
+    out["stream"] = {"labels": labels, "seconds": seconds,
+                     "launches": launches}
+    labels, fps, launches = wide_stream_run(case, group)
+    out["wide_stream"] = {"labels": labels, "frames_per_s": fps,
+                          "launches": launches}
+    torch.save(out, Path(workdir) / f"rank{rank}.pt")
+    dist.destroy_process_group()
+    print(f"RANK{rank} OK", flush=True)
+    return 0
+
+
+def nccl_probe(rank: int, port: int) -> int:
+    """Two ranks on one card over NCCL: an all_reduce, and whether NCCL
+    takes it."""
+    sys.path.insert(0, str(ROOT))
+    import torch
+    import torch.distributed as dist
+
+    from deepgraphpose_tpu_torch.parallel import distributed
+
+    try:
+        device = distributed.initialize(f"127.0.0.1:{port}", 2, rank,
+                                        backend="nccl")
+        x = torch.ones(1, device=device)
+        dist.all_reduce(x)
+        torch.cuda.synchronize()
+        print(f"NCCL ACCEPTED {x.item()}", flush=True)
+        return 0
+    except Exception as e:  # noqa: BLE001 - the probe reports the refusal
+        print(f"NCCL REFUSED {type(e).__name__}: "
+              f"{str(e).splitlines()[0][:300]}", flush=True)
+        return 3
+
+
+def run_ranks(args: list, timeout: int) -> list:
+    """Start this script twice with ``args`` and the rank, wait for both
+    within ``timeout`` seconds (killing both past it): (return codes,
+    outputs); a return code of None marks a rank killed at the limit."""
+    port = free_port()
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                               *args[:1], str(rank), str(port), *args[1:]],
+                              cwd=str(ROOT), text=True,
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT)
+             for rank in range(2)]
+    outs = []
+    deadline = time.monotonic() + timeout
+    try:
+        for p in procs:
+            try:
+                outs.append(p.communicate(timeout=max(
+                    deadline - time.monotonic(), 1))[0])
+            except subprocess.TimeoutExpired:
+                p.kill()
+                outs.append(p.communicate()[0])
+                p.returncode = None
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return [(p.returncode, out) for p, out in zip(procs, outs)]
+
+
+def within_largest(got: dict, want: dict) -> float:
+    """The largest error of a tensor over that tensor's largest value."""
+    return max(((got[k] - v).abs().max()
+                / v.abs().max().clamp_min(1e-30)).item()
+               for k, v in want.items())
+
+
+def group_runs(root, device) -> list:
+    """fit_dgp(batch_size=TRAIN_BATCH) one window an update, then PAR_G
+    windows an update eager and with the superstep (scan_iters=SCAN_K),
+    with cuDNN's defaults: updates/s, windows/s, frames/s and peak memory
+    side by side, and the superstep's final parameters against its eager
+    twin's (reported: the defaults' algorithms need not be deterministic).
+    Then the same eager and superstep twins under deterministic cuDNN;
+    fails unless the superstep's final parameters are within SCAN_REL of
+    each tensor's largest of its eager twin's."""
+    import torch
+
+    from deepgraphpose_tpu_torch.core import checkpoint
+    from deepgraphpose_tpu_torch.core.paths import resolve_project
+    from deepgraphpose_tpu_torch.train import fit
+
+    step2 = dict(dlcpath=root, maxiters=FIT_ITERS, displayiters=FIT_DISPLAY,
+                 saveiters=FIT_SAVE * TRAIN_BATCH, batch_size=TRAIN_BATCH,
+                 device=device)
+
+    def run(name, g, scan):
+        out = fit_run(name, fit.fit_dgp,
+                      dict(step2, windows_per_device=g, scan_iters=scan,
+                           debug=f"_{name[8:]}"), TRAIN_BATCH, 1)
+        torch.cuda.empty_cache()
+        return out
+
+    runs = [run("fit_dgp_g1", 1, 0), run("fit_dgp_w2", PAR_G, 0),
+            run("fit_dgp_w2_scan", PAR_G, SCAN_K)]
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                    deterministic=True):
+        twins = [run("fit_dgp_w2_det", PAR_G, 0),
+                 run("fit_dgp_w2_scan_det", PAR_G, SCAN_K)]
+    _, _, train_dir = resolve_project(root)
+
+    def rel(pair):
+        eager, scan = (checkpoint.state_dict_from_flax(
+            checkpoint.load_snapshot(train_dir / r["final"])[0])
+            for r in pair)
+        return within_largest(scan, eager)
+
+    rel_det = rel(twins)
+    out = {"phase": "parallel_group", "windows": PAR_G, "k": SCAN_K,
+           "scan_vs_eager_param_rel": rel_det,
+           "scan_vs_eager_param_rel_defaults": rel(runs[1:]), "runs": [{
+               "run": r["run"], "updates_per_s": r["steps_per_s"] / g,
+               "windows_per_s": r["steps_per_s"],
+               "frames_per_s": r["frames_per_s"],
+               "peak_mem_gb": r["peak_mem_gb"], "scan_k": r["scan_k"],
+               "dispatches": r["dispatches"]}
+               for r, g in zip(runs + twins, (1, PAR_G, PAR_G, PAR_G,
+                                              PAR_G))]}
+    emit(out)
+    if not (rel_det <= SCAN_REL and twins[1]["scan_k"] == SCAN_K
+            and twins[1]["dispatches"] > 1 and runs[2]["scan_k"] == SCAN_K):
+        raise AssertionError(f"group superstep against its eager twin: "
+                             f"{out}")
+    return runs + twins
+
+
+def two_ranks(device, workdir, final) -> dict:
+    """Two ranks on the one card (gloo, each on cuda:0) against world 1 in
+    this process: the float64 DP steps (loss terms PAR_STEP_REL relative,
+    parameters and buffers PAR_STEP_REL of each tensor's largest), fit_dgp
+    (data_parallel=2) against fit_dgp(windows_per_device=2) from the same
+    seed (``rtol``/``atol`` PAR_FIT_*), the time-sharded inference's
+    displacement and smoothed track (PAR_STREAM_TOL), the full-width
+    bfloat16 streaming run's x and y (PAR_RAW_PX) and frames/s beside one
+    rank's; then whether NCCL
+    takes two ranks on one card. Returns each path's launches."""
+    import numpy as np
+    import torch
+
+    from deepgraphpose_tpu_torch.core import checkpoint
+    from deepgraphpose_tpu_torch.parallel import mesh
+
+    root = Path(workdir) / "fit_project"
+    case = parallel_case(workdir, final)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = run_ranks(["--parallel-worker", str(workdir)], PAR_TIMEOUT)
+    ranks_s = time.perf_counter() - t0
+    for rc, log in ranks:
+        print(log[-4000:], file=sys.stderr)
+    if any(rc != 0 for rc, _ in ranks):
+        raise AssertionError(f"a rank failed: {[rc for rc, _ in ranks]}")
+    got = [torch.load(Path(workdir) / f"rank{r}.pt", weights_only=False)
+           for r in range(2)]
+
+    group = mesh.make_mesh(1, device)
+    want = dp_steps(case, group)
+    ref_final, ref_s, ref_launches = dp_fit(root, device,
+                                            windows_per_device=PAR_G,
+                                            debug="_dp2ref")
+    ref_stream, _, _ = stream_run(case, group)
+    ref_wide, ref_wide_fps, ref_wide_launches = wide_stream_run(case, group)
+
+    steps_err = {}
+    for name in ("dgp", "dlc"):
+        steps_err[name] = {
+            "loss_rel": max(abs(r[name]["loss"][k] - v) / abs(v)
+                            for r in got for k, v in want[name]["loss"].items()
+                            if v),
+            "param_rel": max(within_largest(r[name]["state"],
+                                            want[name]["state"])
+                             for r in got)}
+    load = checkpoint.load_snapshot
+    dp_state = checkpoint.state_dict_from_flax(load(got[0]["fit"]["final"])[0])
+    ref_state = checkpoint.state_dict_from_flax(load(ref_final)[0])
+    fit_ok = all(np.allclose(dp_state[k].double().numpy(),
+                             v.double().numpy(), rtol=PAR_FIT_RTOL,
+                             atol=PAR_FIT_ATOL) for k, v in ref_state.items())
+    fit_dev = max(((dp_state[k] - v).abs() - PAR_FIT_RTOL * v.abs()).max()
+                  .item() for k, v in ref_state.items())
+    stream_err = {key: max(float(np.max(np.abs(r["stream"]["labels"][key]
+                                                - ref_stream[key])))
+                           for r in got)
+                  for key in ("x", "y", "displacement")}
+    wide_px = max(float(np.max(np.abs(r["wide_stream"]["labels"][key]
+                                      - ref_wide[key])))
+                  for r in got for key in ("x", "y"))
+
+    nccl = run_ranks(["--nccl-probe"], PAR_NCCL_TIMEOUT)
+    nccl_said = [next((ln for ln in out.splitlines() if "NCCL" in ln),
+                      out.strip().splitlines()[-1] if out.strip() else "")
+                 for _, out in nccl]
+    nccl_outcome = ("accepted" if all(rc == 0 for rc, _ in nccl) else
+                    "killed at the limit" if any(rc is None for rc, _ in nccl)
+                    else "refused")
+    out = {"phase": "parallel_two_ranks", "ranks": 2,
+           "backend": got[0]["backend"],
+           "devices": [r["device"] for r in got], "seconds": ranks_s,
+           "steps": steps_err, "step_rel_bound": PAR_STEP_REL,
+           "fit": {"final": Path(got[0]["fit"]["final"]).name,
+                   "windows": PAR_FIT_ITERS, "allclose": fit_ok,
+                   "worst_over_rtol": fit_dev,
+                   "rtol": PAR_FIT_RTOL, "atol": PAR_FIT_ATOL,
+                   "ranks_s": [r["fit"]["seconds"] for r in got],
+                   "one_rank_s": ref_s},
+           "stream": {"hw": list(PAR_STREAM_HW), "frames": PAR_STREAM_FRAMES,
+                      "frames_per_device": PAR_STREAM_FPD,
+                      "max_abs_err": stream_err,
+                      "ranks_s": [r["stream"]["seconds"] for r in got]},
+           "wide_stream": {"hw": list(HW), "frames_per_device": PAR_FPD,
+                           "dtype": "bfloat16", "frames": int(
+                               ref_wide["x"].shape[0]),
+                           "two_ranks_frames_per_s": got[0]["wide_stream"][
+                               "frames_per_s"],
+                           "one_rank_frames_per_s": ref_wide_fps,
+                           "max_px_from_one_rank": wide_px},
+           "nccl_two_ranks_one_card": {"outcome": nccl_outcome,
+                                       "said": nccl_said,
+                                       "rcs": [rc for rc, _ in nccl]}}
+    emit(out)
+    ok = (all(e["loss_rel"] <= PAR_STEP_REL and e["param_rel"] <= PAR_STEP_REL
+              for e in steps_err.values())
+          and fit_ok and got[0]["fit"]["final"] == got[1]["fit"]["final"]
+          and max(stream_err.values()) <= PAR_STREAM_TOL
+          and wide_px <= PAR_RAW_PX
+          and got[0]["backend"] == "gloo"
+          and got[0]["dgp"]["launches"]["softargmax_likelihood"] == 1)
+    if not ok:
+        raise AssertionError(f"two ranks against one: {out}")
+    launches = {"parallel_fit_w2_ref": ref_launches,
+                "parallel_wide_stream_ref": ref_wide_launches}
+    for r, rank in enumerate(got):
+        for name in ("dgp", "dlc"):
+            launches[f"parallel_dp_{name}_step_rank{r}"] = rank[name][
+                "launches"]
+        launches[f"parallel_dp_fit_rank{r}"] = rank["fit"]["launches"]
+        launches[f"parallel_stream_rank{r}"] = rank["stream"]["launches"]
+        launches[f"parallel_wide_stream_rank{r}"] = rank["wide_stream"][
+            "launches"]
+    return launches
+
+
+def multichip_runs(device, root, final) -> dict:
+    """estimate_pose_multichip at world 1 under an NCCL process group of
+    one, over the fit project's 747x832 ResNet-50 video from the step-2
+    snapshot, in bf16 and int8: raw (smooth=False) against estimate_pose
+    on the same snapshot, batches and calibration frames (PAR_RAW_PX);
+    smoothed against ewma_reference of the raw track (PAR_SMOOTH_TOL);
+    frames/s of the loop. Returns each path's launches."""
+    import io
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from deepgraphpose_tpu_torch.core.paths import resolve_project
+    from deepgraphpose_tpu_torch.infer.predict import estimate_pose
+    from deepgraphpose_tpu_torch.parallel import distributed, mesh
+    from deepgraphpose_tpu_torch.parallel.streaming import (
+        estimate_pose_multichip, ewma_reference)
+
+    group = mesh.make_mesh(device=distributed.initialize(
+        f"127.0.0.1:{free_port()}", 1, 0))
+    backend = dist.get_backend()
+    video = root / "videos_dgp" / "synthvid.avi"
+    stride = resolve_project(root)[1].stride
+    lines, launches, ok = [], {}, backend == "nccl"
+    try:
+        for dtype, quantize in (("bfloat16", False), ("bfloat16", True)):
+            name = "multichip_int8" if quantize else "multichip_bf16"
+            ref = estimate_pose(root / "config.yaml", final, video,
+                                root / "videos_pred", save_pose=False,
+                                batch_size=PAR_FPD, compute_dtype=dtype,
+                                quantize=quantize, calib_frames=8,
+                                device=device)
+            runs = {}
+            for smooth in (False, True):
+                printed = io.StringIO()
+                with contextlib.redirect_stdout(printed):
+                    runs[smooth], seconds, counts = counted(
+                        estimate_pose_multichip, root / "config.yaml", final,
+                        video, root / "videos_pred", mesh=group,
+                        frames_per_device=PAR_FPD, save_pose=False,
+                        smooth=smooth, compute_dtype=dtype,
+                        quantize=quantize)
+                rate = re.search(r"= ([\d.]+) frames/s", printed.getvalue())
+                launches[f"{name}{'_smooth' if smooth else ''}"] = counts
+                fps = float(rate.group(1)) if rate else None
+            raw, sm = runs[False], runs[True]
+            raw_px = max(float(np.max(np.abs(raw[k] - ref[k])))
+                         for k in ("x", "y"))
+            cells = np.stack([(raw["y"] - stride / 2) / stride,
+                              (raw["x"] - stride / 2) / stride], -1)
+            want = ewma_reference(cells, raw["likelihoods"])
+            got = np.stack([(sm["y"] - stride / 2) / stride,
+                            (sm["x"] - stride / 2) / stride], -1)
+            smooth_ok = np.allclose(got, want, rtol=PAR_SMOOTH_TOL,
+                                    atol=PAR_SMOOTH_TOL)
+            line = {"phase": "parallel_multichip", "path": name,
+                    "world": group.world, "backend": backend,
+                    "frames": int(raw["x"].shape[0]),
+                    "frames_per_device": PAR_FPD, "dtype": dtype,
+                    "quantize": quantize, "frames_per_s": fps,
+                    "wall_s": seconds,
+                    "raw_vs_estimate_pose_px": raw_px,
+                    "smoothed_vs_ewma_cells": float(np.max(np.abs(got
+                                                                  - want))),
+                    "smoothed_allclose": bool(smooth_ok),
+                    "displacement_max": float(raw["displacement"].max()),
+                    "launches": counts}
+            emit(line)
+            lines.append(line)
+            ok = (ok and raw_px <= PAR_RAW_PX and smooth_ok
+                  and all(np.isfinite(raw[k]).all() for k in raw)
+                  and counts["softargmax_likelihood"] > 0
+                  and (counts["mm_tiled"] > 0 and counts["conv_int8"] > 0)
+                  == quantize)
+    finally:
+        dist.destroy_process_group()
+    if not ok:
+        raise AssertionError(f"time-sharded inference failed: {lines}")
+    return launches
+
+
+def phase_parallel(device, workdir, final) -> dict:
+    """The parallel phase on the fit project: the group runs, two ranks on
+    the card, the time-sharded inference. Returns each path's launches."""
+    import torch
+
+    t0 = time.perf_counter()
+    root = Path(workdir) / "fit_project"
+    runs = group_runs(root, device)
+    launches = {r["run"]: r["launches"] for r in runs}
+    launches.update(two_ranks(device, workdir, final))
+    torch.cuda.empty_cache()
+    launches.update(multichip_runs(device, root, final))
+    emit({"phase": "parallel", "seconds": time.perf_counter() - t0})
+    return launches
+
+
 def kernel_class(name: str) -> str:
     """Sort a device kernel's name into decode, int8_gemm (the port's int8
     GEMM, matched before the library GEMMs), convolution, h2d (copies from
@@ -2452,6 +3068,11 @@ def phase_profile(cfg, device, model, qmodel, train_step2, fit_steps: dict,
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--parallel-worker"]:
+        return parallel_worker(int(sys.argv[2]), int(sys.argv[3]),
+                               sys.argv[4])
+    if sys.argv[1:2] == ["--nccl-probe"]:
+        return nccl_probe(int(sys.argv[2]), int(sys.argv[3]))
     if not (ROOT / "deepgraphpose_tpu_torch").is_dir():
         print("chip_smoke.py: run it from a checkout of the repository "
               "(deepgraphpose_tpu_torch/ not found)", file=sys.stderr)
@@ -2517,6 +3138,7 @@ def main() -> int:
         fit_lines, (pose, final), fit_steps = phase_fit(device, workdir)
         analysis = phase_analysis(device, Path(workdir) / "fit_project",
                                   pose, final)
+        parallel = phase_parallel(device, workdir, final)
         phase_profile(cfg, device, model, qmodel, train_step2, fit_steps,
                       (mobile["cfg"], mobile["model"]))
 
@@ -2524,6 +3146,7 @@ def main() -> int:
     by_path.update({line["phase"]: line["launches"] for line in train_lines})
     by_path.update({line["run"]: line["launches"] for line in fit_lines})
     by_path.update(analysis)
+    by_path.update(parallel)
     decode_by_path = {"full_frame": full_launches,
                       "tracked_crop": crop_launches,
                       "mobilenet_full_frame": mobile["full_launches"],

@@ -16,7 +16,11 @@ bfloat16 mixed precision (float32 weights). After training, what users
 run: ``analyze_videos`` (DLC-scorer CSV/H5, the DLC top-k decode for
 ``num_outputs > 1``), ``evaluate_network`` / ``evaluate_dgp`` (px error
 against the labels), ``filterpredictions``, ``extract_outlier_frames`` and
-``analyzeskeleton``. The module
+``analyzeskeleton``. Training spreads over the ranks of a
+``torch.distributed`` process group (``data_parallel``) and batches
+several windows an update (``windows_per_device``), and
+``parallel.streaming.estimate_pose_multichip`` splits a video's time axis
+over the ranks (``parallel/``). The module
 layout and public names follow ``deepgraphpose_tpu``, which stays the
 reference; this package imports nothing of it, nor JAX. Entry points run on the card unless the caller
 passes ``device="cpu"``.

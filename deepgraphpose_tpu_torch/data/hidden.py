@@ -10,6 +10,8 @@ around visible frames, (b) at least ns away from already-accepted frames,
 
 from __future__ import annotations
 
+import os
+
 from pathlib import Path
 
 import numpy as np
@@ -86,8 +88,12 @@ def hidden_frames_for_video(video_path: str | Path, visible: np.ndarray,
     if me is None:
         me = motion_energy(video_path, resize_to=resize_to)
         if cache_file is not None:
+            # written whole, then renamed: ranks of a data-parallel run
+            # may build the same cache at once
             cache_file.parent.mkdir(parents=True, exist_ok=True)
-            np.save(cache_file, me)
+            part = cache_file.with_suffix(f".{os.getpid()}.npy")
+            np.save(part, me)
+            os.replace(part, cache_file)
     if len(me) < n_frames:
         me = np.pad(me, (0, n_frames - len(me)))
     rank = np.argsort(me[:n_frames])[::-1].astype(np.int64)

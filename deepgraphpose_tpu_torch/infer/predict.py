@@ -48,9 +48,11 @@ def forward_heads(model: PoseModel, images_u8: torch.Tensor,
                   heads=("part_pred",)) -> dict:
     """The model's float32 ``heads`` of uint8 images (B, H, W, 3). cuDNN
     autotunes each shape and never uses TF32, so a float32 model computes
-    in full float32 as the JAX reference does."""
+    in full float32 as the JAX reference does. Where the caller asked
+    cuDNN to be deterministic it does not autotune either: its heuristics
+    pick the same algorithms in every process."""
     cudnn = torch.backends.cudnn
-    with cudnn.flags(enabled=True, benchmark=True,
+    with cudnn.flags(enabled=True, benchmark=not cudnn.deterministic,
                      deterministic=cudnn.deterministic, allow_tf32=False):
         return model(images_u8, heads=heads)
 

@@ -64,6 +64,35 @@ def _conv(cin: int, cout: int, k: int, stride: int = 1, rate: int = 1,
                   bias=False, dtype=dtype)
 
 
+class BatchStats:
+    """How a batch-norm in train mode takes its statistics; pass it where
+    ``train=True`` goes (``model(images, train=BatchStats(...))``).
+
+    * ``windows > 1``: the batch is that many equal windows, one after
+      another on N, and each is normalized by its own statistics; the
+      moving stats become the mean over the windows of each window's
+      updated stats. This is the JAX package's ``vmap`` over DGP windows
+      (``deepgraphpose_tpu/train/device_data.py:614-619``).
+    * ``all_sum``: the batch is this rank's equal slice of a global batch
+      over ``world`` ranks, normalized by the global batch's statistics
+      (XLA's collective in the JAX package's data-parallel step 0).
+      ``all_sum`` sums a tensor over the ranks, with autograd through the
+      sum; the mean comes first and then the squared deviations, so the
+      variance is the biased one of the whole global batch.
+
+    ``BatchStats()`` is ``train=True``.
+    """
+
+    def __init__(self, windows: int = 1, all_sum=None, world: int = 1):
+        if windows > 1 and all_sum is not None:
+            raise ValueError("BatchStats: per-window statistics are local; "
+                             "pass windows or all_sum, not both")
+        self.windows, self.all_sum, self.world = int(windows), all_sum, world
+
+    def __bool__(self) -> bool:
+        return True
+
+
 class FrozenBatchNorm(nn.Module):
     """Batch-norm as the flax module: inference by default, batch stats
     with ``train=True``.
@@ -75,7 +104,9 @@ class FrozenBatchNorm(nn.Module):
     batch mean and the biased batch variance (over N, H, W, in float32, or
     float64 for float64 input) and updates the moving stats as
     ``0.99 * stat + 0.01 * batch_stat`` (flax momentum 0.99), the
-    from-scratch mode of ``deepgraphpose_tpu/models/resnet.py:52-89``.
+    from-scratch mode of ``deepgraphpose_tpu/models/resnet.py:52-89``;
+    ``train`` may also be a :class:`BatchStats` (per-window or global-batch
+    statistics).
     """
 
     momentum = 0.99
@@ -88,21 +119,48 @@ class FrozenBatchNorm(nn.Module):
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        if train:
-            xf = x.to(torch.promote_types(x.dtype, torch.float32))
+    def _batch_stats(self, x: torch.Tensor, stats: BatchStats):
+        """(mean, var) to normalize by, each (C,) or (windows, C); updates
+        the moving stats."""
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        m = self.momentum
+        if stats.windows > 1:
+            xw = xf.unflatten(0, (stats.windows, -1))
+            use_mean = xw.mean(dim=(1, 3, 4))
+            use_var = xw.var(dim=(1, 3, 4), unbiased=False)
+            with torch.no_grad():
+                self.mean.copy_((m * self.mean + (1.0 - m) * use_mean)
+                                .mean(0))
+                self.var.copy_((m * self.var + (1.0 - m) * use_var).mean(0))
+            return use_mean, use_var
+        if stats.all_sum is not None:
+            count = xf.shape[0] * xf.shape[2] * xf.shape[3] * stats.world
+            use_mean = stats.all_sum(xf.sum(dim=(0, 2, 3))) / count
+            dev = xf - use_mean[:, None, None]
+            use_var = stats.all_sum(dev.square().sum(dim=(0, 2, 3))) / count
+        else:
             use_mean = xf.mean(dim=(0, 2, 3))
             use_var = xf.var(dim=(0, 2, 3), unbiased=False)
-            m = self.momentum
-            with torch.no_grad():
-                self.mean.copy_(m * self.mean + (1.0 - m) * use_mean)
-                self.var.copy_(m * self.var + (1.0 - m) * use_var)
+        with torch.no_grad():
+            self.mean.copy_(m * self.mean + (1.0 - m) * use_mean)
+            self.var.copy_(m * self.var + (1.0 - m) * use_var)
+        return use_mean, use_var
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        if train:
+            stats = train if isinstance(train, BatchStats) else BatchStats()
+            use_mean, use_var = self._batch_stats(x, stats)
         else:
             use_mean, use_var = self.mean, self.var
         # inv in float32, then x * inv + (bias - mean * inv) in x's dtype
         # (ref: deepgraphpose_tpu models/resnet.py:93-94)
         inv = self.scale / torch.sqrt(use_var + self.epsilon)
         shift = self.bias - use_mean * inv
+        if inv.dim() == 2:              # per window: (windows, C)
+            xw = x.unflatten(0, (inv.shape[0], -1))
+            y = (xw * inv.to(x.dtype)[:, None, :, None, None]
+                 + shift.to(x.dtype)[:, None, :, None, None])
+            return y.flatten(0, 1)
         return x * inv.to(x.dtype)[:, None, None] + shift.to(x.dtype)[:, None, None]
 
 

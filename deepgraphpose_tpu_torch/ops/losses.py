@@ -26,13 +26,14 @@ def sigmoid_cross_entropy_elements(labels: torch.Tensor,
 
 
 def sigmoid_cross_entropy(labels: torch.Tensor, logits: torch.Tensor,
-                          weights=1.0) -> torch.Tensor:
+                          weights=1.0, all_sum=None) -> torch.Tensor:
     """TF-semantics sigmoid CE: sum(w * ce) / count(broadcast w != 0).
 
     With scalar weight 1.0 this is the plain mean (ref: pose_net.py:176-179).
+    ``all_sum``: see :func:`weighted_loss`.
     """
     return weighted_loss(sigmoid_cross_entropy_elements(labels, logits),
-                         weights)
+                         weights, all_sum)
 
 
 def huber_elements(labels: torch.Tensor, predictions: torch.Tensor,
@@ -45,20 +46,25 @@ def huber_elements(labels: torch.Tensor, predictions: torch.Tensor,
 
 
 def huber_loss(labels: torch.Tensor, predictions: torch.Tensor,
-               weights=1.0, k: float = 1.0) -> torch.Tensor:
-    return weighted_loss(huber_elements(labels, predictions, k), weights)
+               weights=1.0, k: float = 1.0, all_sum=None) -> torch.Tensor:
+    return weighted_loss(huber_elements(labels, predictions, k), weights,
+                         all_sum)
 
 
 def mse_loss(labels: torch.Tensor, predictions: torch.Tensor,
-             weights=1.0) -> torch.Tensor:
-    return weighted_loss(torch.square(predictions - labels), weights)
+             weights=1.0, all_sum=None) -> torch.Tensor:
+    return weighted_loss(torch.square(predictions - labels), weights,
+                         all_sum)
 
 
-def weighted_loss(losses: torch.Tensor, weights) -> torch.Tensor:
+def weighted_loss(losses: torch.Tensor, weights,
+                  all_sum=None) -> torch.Tensor:
     """TF compute_weighted_loss, reduction=SUM_BY_NONZERO_WEIGHTS.
 
     ``weights`` broadcasts against ``losses``; the denominator counts the
-    number of *broadcast* elements with nonzero weight.
+    number of *broadcast* elements with nonzero weight. ``all_sum`` (a
+    data group's differentiable sum over its ranks) reduces over a global
+    batch: the sum and the count are the ranks' totals.
     """
     # a number becomes a device scalar by a fill, not a copy from the host
     # (which would wait for the card and break a CUDA graph's capture)
@@ -68,6 +74,8 @@ def weighted_loss(losses: torch.Tensor, weights) -> torch.Tensor:
     w = torch.broadcast_to(weights, losses.shape)
     num_present = torch.sum((w != 0).to(losses.dtype))
     total = torch.sum(losses * w)
+    if all_sum is not None:
+        num_present, total = all_sum(num_present), all_sum(total)
     return torch.where(num_present > 0,
                        total / torch.clamp_min(num_present, 1.0),
                        torch.zeros_like(total))

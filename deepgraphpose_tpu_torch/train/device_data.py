@@ -1,7 +1,6 @@
 """Device-resident training-data pools and the pooled train steps.
 
-The port's own copy of ``deepgraphpose_tpu/train/device_data.py`` (but the
-multi-window group steps, which wait for ROADMAP item 16). The training
+The port's own copy of ``deepgraphpose_tpu/train/device_data.py``. The training
 sets are small enough to live in device memory outright (a labeled set of
 canvases; a DGP video's frame pool, capped at ``n_max_frames``), so:
 
@@ -19,7 +18,9 @@ Frame pools over the budget rotate through device memory in segments
 while the current one trains). The JAX package's ``lax.scan`` superstep, K
 updates a dispatch, is :class:`Superstep` here: on the card each update
 replays a CUDA graph of the pooled update, captured once per pool tensor
-and window shape.
+and window shape. The multi-window group update (G windows an update,
+gradients of the mean over windows; ``parallel/train_dp.py`` runs it over
+ranks) composes with it: :func:`make_pooled_dgp_group_scan_step`.
 """
 
 from __future__ import annotations
@@ -31,12 +32,14 @@ import numpy as np
 import torch
 
 from deepgraphpose_tpu_torch.core.config import PoseConfig
+from deepgraphpose_tpu_torch.models.resnet import BatchStats, FrozenBatchNorm
 from deepgraphpose_tpu_torch.data.prefetch import host_to_device
 from deepgraphpose_tpu_torch.ops.augment_device import (DeviceAugmentConfig,
                                                         augment_batch)
 from deepgraphpose_tpu_torch.ops.dgp_objective import DGPLossParams, dgp_loss
 from deepgraphpose_tpu_torch.ops.flow_device import flow_magnitude_device
 from deepgraphpose_tpu_torch.ops.kernels import add_launches, launch_counts
+from deepgraphpose_tpu_torch.parallel.mesh import DataGroup
 from deepgraphpose_tpu_torch.train.steps import (_device, _update,
                                                  dlc_supervised_loss)
 
@@ -290,12 +293,15 @@ def iter_spill_segments(pools, runs, device):
     thread.join()
 
 
-def resolve_scan_iters(scan_iters) -> int:
+def resolve_scan_iters(scan_iters, use_pool: bool = True,
+                       n_dp: int = 0) -> int:
     """A fit API ``scan_iters`` argument as a chunk length K (0 = off).
 
     ``None`` is auto: the JAX package scans 20 updates a dispatch on a TPU
-    only, and the port runs on no TPU, so auto is off."""
-    if scan_iters is None:
+    only, and the port runs on no TPU, so auto is off. The superstep needs
+    the device-resident pools and one device: over ranks (``n_dp > 1``)
+    each update waits on its collective anyway."""
+    if not use_pool or n_dp > 1 or scan_iters is None:
         return 0
     k = int(scan_iters)
     return k if k > 1 else 0
@@ -365,9 +371,9 @@ class Superstep:
     libraries' handles), the second captures the graph, and every update
     from then on copies its inputs into the graph's static buffers (on the
     device), writes its rate into the optimizer's ``neg_lr`` and replays.
-    The generator that draws the augmentation is registered with the
-    graph, so a replay draws what the eager update would draw from the
-    generator's state. A replay launches the captured kernels without
+    The generator that draws the augmentation (or each of a list, one a
+    window of a group update) is registered with the graph, so a replay
+    draws what the eager update would draw from the generator's state. A replay launches the captured kernels without
     their wrappers, so each replay adds the capture's launches to the
     kernels' counts. A capture that fails raises; nothing falls back to
     eager updates.
@@ -434,7 +440,9 @@ class Superstep:
                     "scan_iters > 1 with on-device augmentation needs "
                     "torch.cuda.CUDAGraph.register_generator_state "
                     f"(torch {torch.__version__} has none)")
-            graph.register_generator_state(generator)
+            for g in (generator if isinstance(generator, (list, tuple))
+                      else [generator]):
+                graph.register_generator_state(g)
         before = launch_counts()
         try:
             with self.optimizer.capturing(), torch.cuda.graph(graph):
@@ -595,3 +603,169 @@ def make_pooled_dgp_scan_step(model, params_obj: DGPLossParams, optimizer,
                          (pool_images,))
 
     return step
+
+
+# ---------------------------------------------------------------------------
+# the multi-window group update: G windows an update
+# ---------------------------------------------------------------------------
+
+def window_generators(seed: int, n: int, device,
+                      first: int = 0) -> list[torch.Generator]:
+    """The augmentation generators of a group's window slots ``first`` ..
+    ``first + n - 1``, on ``device``. Slot j's generator is seeded from
+    ``(seed, j)`` whichever rank holds the slot, and draws once an update
+    for that slot's window, so the layout (ranks x windows a rank) does
+    not change any window's draws (the JAX package gives each window of a
+    group its own key)."""
+    return [torch.Generator(device).manual_seed(
+        int(np.random.SeedSequence((seed, j)).generate_state(1)[0]))
+        for j in range(first, first + n)]
+
+
+def bn_buffers(model: torch.nn.Module) -> list[torch.Tensor]:
+    """The batch-norm moving stats of ``model``, in module order."""
+    return [b for m in model.modules() if isinstance(m, FrozenBatchNorm)
+            for b in (m.mean, m.var)]
+
+
+def window_heads(model, images: torch.Tensor, n: int,
+                 bn_train: bool) -> list[dict]:
+    """Each of ``n`` windows' heads (``images`` holds them one after
+    another on N), in train mode with ``bn_train``. The windows go through
+    the trunk in one call, each normalized by its own statistics with
+    ``bn_train`` (``BatchStats``)."""
+    t = images.shape[0] // n
+    train = BatchStats(windows=n) if (bn_train and n > 1) else bn_train
+    heads = model(images, train=train)
+    return [{k: v[g * t:(g + 1) * t] for k, v in heads.items()}
+            for g in range(n)]
+
+
+def group_update(model, params_obj: DGPLossParams, optimizer,
+                 group: DataGroup, images: torch.Tensor, batches: list,
+                 key: str, bn_train: bool) -> dict:
+    """One update over this rank's windows: ``images`` holds the
+    ``len(batches)`` windows one after another on N, ``batches`` each
+    window's ``DGPBatch`` tensors. The loss is the mean over the windows
+    of each window's DGP loss, its gradient averaged over the group's
+    ranks (every rank holds as many windows, so that is the gradient of
+    the global mean), then every rank applies the same update.
+
+    The windows' heads come from :func:`window_heads`. One
+    ``all_reduce`` a dtype carries the gradients, the moving stats (with
+    ``bn_train``: their average over the ranks) and the loss terms; a
+    world of 1 runs none. Returns the loss terms, each the mean over the
+    group's windows."""
+    n = len(batches)
+    heads = window_heads(model, images, n, bn_train)
+    outs = [dgp_loss(h["part_pred"], h["locref"], b, params_obj)
+            for h, b in zip(heads, batches)]
+    names = list(outs[0])
+    per_window = torch.stack([torch.stack([o[k] for k in names])
+                              for o in outs])
+    terms = per_window.mean(0)
+    optimizer.zero_grad(set_to_none=True)
+    terms[names.index(key)].backward()
+    terms = terms.detach().clone()
+    if group.world > 1:
+        grads = [p.grad for p in model.parameters() if p.grad is not None]
+        group.all_reduce_mean_(grads + (bn_buffers(model) if bn_train
+                                        else []) + [terms])
+    optimizer.step()
+    return dict(zip(names, terms))
+
+
+def _make_dgp_group_pool_body(model, params_obj: DGPLossParams, optimizer,
+                              aug_cfg: DeviceAugmentConfig | None,
+                              visible_only: bool, bn_train: bool,
+                              device_flow: bool,
+                              group: DataGroup | None = None):
+    """One G-window pooled DGP update: ``body(pool_images, rows (G, T),
+    batch (every DGPBatch tensor G-leading), generators (G))`` -> the loss
+    terms averaged over the windows, updating ``model`` and ``optimizer``
+    in place. Each window is gathered, augmented from its own generator
+    and given its flow on its own (the JAX package ``vmap``s them), then
+    :func:`group_update`. ``group`` (default: a world of 1) holds the
+    ranks the group's windows are spread over; ``rows`` and ``batch`` are
+    then this rank's windows."""
+    if device_flow and aug_cfg is not None:
+        raise ValueError("group pool body: aug_cfg must be None when "
+                         "device_flow=True (flow needs unaugmented, "
+                         "temporally coherent frames)")
+    key = "total_loss_visible" if visible_only else "total_loss"
+    dev = _device(model)
+    params_obj = params_obj.to(dev)
+    stride, nj = params_obj.stride, params_obj.nj
+    group = group or DataGroup(0, 1, dev)
+
+    def body(pool_images: torch.Tensor, rows: torch.Tensor, batch: dict,
+             generators) -> dict:
+        images, batches = [], []
+        for g in range(rows.shape[0]):
+            im = pool_images.index_select(0, rows[g])
+            b = {k: v[g] for k, v in batch.items()}
+            if aug_cfg is not None:
+                im, b = augment_dgp_window(generators[g], im, b, aug_cfg,
+                                           stride, nj)
+            if device_flow:
+                b = dict(b, flow=flow_magnitude_device(im))
+            images.append(im)
+            batches.append(b)
+        return group_update(model, params_obj, optimizer, group,
+                            torch.cat(images), batches, key, bn_train)
+
+    return body
+
+
+def make_pooled_dgp_group_scan_step(model, params_obj: DGPLossParams,
+                                    optimizer,
+                                    aug_cfg: DeviceAugmentConfig | None,
+                                    visible_only: bool = False,
+                                    bn_train: bool = False,
+                                    device_flow: bool = False):
+    """K pooled G-window updates a dispatch (reference
+    ``make_pooled_dgp_group_scan_step``): the multi-window group update
+    and the superstep composed, on one device.
+
+    ``step(pool_images, rows_stack (K, G, T), batch_stack (every DGPBatch
+    tensor with leading (K, G)), generators (G))`` -> every loss term
+    stacked to (K,), each entry averaged over its G windows. Each update
+    is :func:`_make_dgp_group_pool_body`'s; see :class:`Superstep`."""
+    body = _make_dgp_group_pool_body(model, params_obj, optimizer, aug_cfg,
+                                     visible_only, bn_train, device_flow)
+    superstep = Superstep(optimizer, draws=aug_cfg is not None)
+
+    def step(pool_images: torch.Tensor, rows_stack: torch.Tensor,
+             batch_stack: dict, generators) -> dict:
+        def one(inputs: dict) -> dict:
+            batch = {k: v for k, v in inputs.items() if k != "rows"}
+            return body(pool_images, inputs["rows"], batch, generators)
+
+        return superstep(one, dict(batch_stack, rows=rows_stack),
+                         list(generators), (pool_images,))
+
+    return step
+
+
+def iter_group_scan_runs(group_ds, start: int, save_every: int | None,
+                         group_stride: int, k: int):
+    """Yield ``(ds_i, a, b)`` chunks over GROUP indices for the composed
+    superstep: at most ``k`` consecutive groups, all from one dataset (one
+    frame pool a dispatch). ``group_stride`` is the schedule positions one
+    group consumes (G); a group gi is snapshot-final when iteration
+    ``gi * group_stride`` crosses a ``save_every`` boundary (the trainer
+    saves with ``stride=G``), and such groups end their chunk so that the
+    snapshot is written from the state after them."""
+    it, n = start, len(group_ds)
+    while it < n:
+        ds_i = group_ds[it]
+        end = min(it + k, n)
+        r = it
+        while r < end and group_ds[r] == ds_i:
+            r += 1
+            gi = r - 1
+            if (save_every and gi > 0
+                    and (gi * group_stride) % save_every < group_stride):
+                break
+        yield ds_i, it, r
+        it = r

@@ -33,8 +33,14 @@ dispatch. Otherwise losses are read (a sync) only at display intervals.
 package does: float32 weights, optimizer state and snapshots, bfloat16
 convolutions (each weight cast at its conv), float32 heads and losses.
 Every backbone trains: the ResNets and the four MobileNetV2 widths.
-Options of later slices raise ``NotImplementedError`` naming their
-ROADMAP item: data parallelism and multi-window updates (16).
+
+``data_parallel`` trains over the ranks of a ``torch.distributed``
+process group, one process a device (``parallel/distributed.py``): every
+rank calls the entry point with the same arguments, builds the same
+schedule from the same seed, and takes its slice of each global batch
+(``parallel/train_dp.py``); rank 0 alone writes snapshots and logs.
+``windows_per_device`` batches that many DGP windows a rank into each
+update, on one card too, where it composes with ``scan_iters``.
 """
 
 from __future__ import annotations
@@ -68,16 +74,59 @@ from deepgraphpose_tpu_torch.utils import profiling
 # shared plumbing
 # ---------------------------------------------------------------------------
 
-def _later_slices(data_parallel=False, windows_per_device: int = 1) -> None:
-    """Raise for the options whose code waits for a later slice."""
-    if data_parallel:
-        raise NotImplementedError(
-            "data_parallel training waits for the multi-GPU slice of the "
-            "port (ROADMAP item 16)")
-    if int(windows_per_device) > 1:
-        raise NotImplementedError(
-            "windows_per_device > 1 (multi-window updates, and on one card "
-            "the group steps) waits for ROADMAP item 16")
+def _group_schedule_dp(schedule, n_dp: int, rng) -> list:
+    """Group same-video windows into global steps of ``n_dp`` windows.
+
+    Windows within one global step must share a frame pool (one video), so
+    the schedule is partitioned per video and chunked; each video's tail
+    group wrap-pads from its own head to keep shapes static. Global steps
+    are then shuffled to restore the cross-video interleave the
+    partitioning destroys (ref schedule semantics: fitdgp_util.py
+    gen_batch's ratio-interleaved windows).
+    """
+    by_ds: dict[int, list] = {}
+    for ds_i, frames in schedule:
+        by_ds.setdefault(int(ds_i), []).append(frames)
+    groups = []
+    for ds_i, wins in by_ds.items():
+        for j in range(0, len(wins), n_dp):
+            grp = list(wins[j:j + n_dp])
+            k = 0
+            while len(grp) < n_dp:
+                grp.append(wins[k % len(wins)])
+                k += 1
+            groups.append((ds_i, grp))
+    return [groups[i] for i in rng.permutation(len(groups))]
+
+
+def _resolve_data_parallel(data_parallel) -> int:
+    """Rank count for ``data_parallel`` (0 = single-device path): True is
+    the process group's world (1 without a group), an int that many,
+    which may not pass the world."""
+    if not data_parallel:
+        return 0
+    import torch.distributed as dist
+
+    live = dist.is_available() and dist.is_initialized()
+    world = dist.get_world_size() if live else 1
+    n = world if data_parallel is True else int(data_parallel)
+    if n > world:
+        raise ValueError(f"data_parallel={n} exceeds the {world} ranks of "
+                         "the process group (one process a device: "
+                         "parallel.distributed.initialize)")
+    return n if n > 1 else 0
+
+
+def _replicate_state(model, optimizer, group) -> None:
+    """Rank 0's weights, buffers and momentum traces on every rank (after
+    any resume, as the JAX package replicates its variables)."""
+    from deepgraphpose_tpu_torch.parallel import mesh as mesh_lib
+
+    mesh_lib.replicate(model, group)
+    group.broadcast_([optimizer.state[p]["momentum_buffer"]
+                      for p in model.parameters()
+                      if optimizer.state.get(p, {}).get("momentum_buffer")
+                      is not None])
 
 
 def _init_model(cfg: PoseConfig, seed: int, compute_dtype,
@@ -371,18 +420,27 @@ class _Log:
 
     def __init__(self, name: str, train_dir: Path, step: int, n_iters: int,
                  displayiters: int, save_every: int, loss_key: str,
-                 max_to_keep: int, tb_log: bool, debug: str = ""):
+                 max_to_keep: int, tb_log: bool, debug: str = "",
+                 group=None):
         self.name, self.train_dir, self.step = name, Path(train_dir), step
         self.n_iters, self.displayiters = n_iters, displayiters
         self.save_every, self.loss_key = save_every, loss_key
         self.max_to_keep, self.debug = max_to_keep, debug
+        # over ranks, rank 0 alone writes
+        self.group = group
+        self.root = group is None or group.is_root
         self.stats: list = []
         self.t0 = time.time()
-        self.timer = profiling.StepTimer(self.train_dir / "steps.jsonl")
-        self.tb = _make_tb_writer(train_dir, tb_log)
+        self.timer = profiling.StepTimer(
+            self.train_dir / "steps.jsonl" if self.root else None)
+        self.tb = _make_tb_writer(train_dir, tb_log and self.root)
 
-    def __call__(self, it: int, out: dict, model, optimizer) -> None:
-        if self.displayiters and it % self.displayiters == 0:
+    def __call__(self, it: int, out: dict, model, optimizer,
+                 stride: int = 1) -> None:
+        """``stride``: the schedule positions the update consumed (G for a
+        G-window update); an interval fires where its boundary falls in
+        [it, it + stride)."""
+        if self.displayiters and it % self.displayiters < stride:
             # float() waits for the card: the interval's wall time is then
             # attributed across its steps
             terms = {k: float(v) for k, v in out.items()}
@@ -391,37 +449,47 @@ class _Log:
             if self.tb is not None:
                 self.tb.add_scalars(it, {f"loss/{k}": v
                                          for k, v in terms.items()})
-            print(f"[{self.name}] iter {it}/{self.n_iters} loss {loss:.4f} "
-                  f"({time.time() - self.t0:.1f}s)", flush=True)
+            if self.root:
+                print(f"[{self.name}] iter {it}/{self.n_iters} loss "
+                      f"{loss:.4f} ({time.time() - self.t0:.1f}s)",
+                      flush=True)
             self.stats.append([it, loss])
-        if self.save_every and it > 0 and it % self.save_every == 0:
+        if (self.root and self.save_every and it > 0
+                and it % self.save_every < stride):
             ckpt_lib.save_snapshot(self.train_dir, self.step, it, model,
                                    optimizer, self.max_to_keep, self.debug)
 
     def finish(self, last_it: int, model, optimizer) -> Path:
         """Close the logs; write the last iteration's snapshot and the
-        final one; return the final snapshot's path."""
+        final one; return the final snapshot's path (over ranks, once
+        rank 0 has written it)."""
         self.timer.close()
         if self.tb is not None:
             self.tb.close()
-        ckpt_lib.save_snapshot(self.train_dir, self.step, last_it, model,
-                               optimizer, self.max_to_keep, self.debug)
-        final = ckpt_lib.save_snapshot(self.train_dir, self.step, "final--0",
-                                       model, debug=self.debug)
-        if self.stats:
-            _log_stats(self.train_dir, self.stats, ["iteration", "loss"])
+        final = self.train_dir / (paths_lib.final_snapshot_name(
+            self.step, self.debug) + ckpt_lib.CKPT_SUFFIX)
+        if self.root:
+            ckpt_lib.save_snapshot(self.train_dir, self.step, last_it, model,
+                                   optimizer, self.max_to_keep, self.debug)
+            final = ckpt_lib.save_snapshot(self.train_dir, self.step,
+                                           "final--0", model,
+                                           debug=self.debug)
+            if self.stats:
+                _log_stats(self.train_dir, self.stats, ["iteration", "loss"])
+        if self.group is not None:
+            self.group.barrier()
         return final
 
 
 def _log_chunk(log: "_Log", iterations, outs: dict, model,
-               optimizer) -> None:
+               optimizer, stride: int = 1) -> None:
     """Hand a superstep's updates to ``log``: its loss terms, stacked to
     (K,), are read from the card once (one copy, one sync)."""
     names = list(outs)
     terms = torch.stack([outs[n] for n in names]).cpu()
     for j, it in enumerate(iterations):
         log(it, {n: terms[i, j] for i, n in enumerate(names)}, model,
-            optimizer)
+            optimizer, stride)
 
 
 def _resume(train_dir: Path, step: int, debug: str, resume: bool, model,
@@ -470,9 +538,15 @@ def fit_dlc(snapshot: str | None = None, dlcpath: str | Path = ".",
     falls back to jitter only, as the JAX package does). ``scan_iters=K``
     (K > 1) runs K updates of the pool a dispatch (on the card each one a
     CUDA graph's replay; ``None`` = 0, off); the host feed ignores it.
-    ``data_parallel`` raises (ROADMAP item 16). ``device``: the card by
-    default; raises without one unless it names the CPU."""
-    _later_slices(data_parallel=data_parallel)
+    ``data_parallel`` trains over the process group's ranks (True = all,
+    int = that many, which must be the world): each of ``maxiters``
+    updates consumes a global batch of ``batch_size x ranks`` images, each
+    rank its slice, with the loss and (with ``bn_train``) the batch-norm
+    statistics of the global batch (``parallel/train_dp.py``); it needs
+    the device-data pool (``ValueError`` without it) and runs one update
+    a dispatch. ``device``: the
+    card by default; raises without one unless it names the CPU."""
+    n_dp = _resolve_data_parallel(data_parallel)
     device = resolve_device(device)
     proj, cfg, train_dir = resolve_project(dlcpath, shuffle, trainingsetindex)
     if ckpt_lib.snapshot_exists(train_dir, step):
@@ -507,6 +581,15 @@ def fit_dlc(snapshot: str | None = None, dlcpath: str | Path = ".",
         print("warning: fit_dlc(device_data=True) labeled-image pool "
               "exceeds the device budget; falling back to host batches")
         use_pool = False
+    if n_dp > 1 and not use_pool:
+        raise ValueError(f"fit_dlc(data_parallel={data_parallel}) over "
+                         f"{n_dp} ranks needs the device-data pool (it "
+                         "exceeds the device budget or device_data=False)")
+    group = None
+    if n_dp > 1:
+        from deepgraphpose_tpu_torch.parallel import mesh as mesh_lib
+
+        group = mesh_lib.make_mesh(n_dp, device)
     if use_pool:
         pool = dd.LabeledImagePool(data, cfg, device)
         if aug:
@@ -518,13 +601,22 @@ def fit_dlc(snapshot: str | None = None, dlcpath: str | Path = ".",
                 cfg.scale_jitter_lo, cfg.scale_jitter_up)
         else:
             aug_cfg = None
-        pooled_step = dd.make_pooled_dlc_train_step(model, cfg, optimizer,
-                                                    aug_cfg, bn_train=bn_train)
-        scan_k = dd.resolve_scan_iters(scan_iters)
+        if group is not None:
+            from deepgraphpose_tpu_torch.parallel.train_dp import \
+                make_dp_pooled_dlc_train_step
+
+            pooled_step = make_dp_pooled_dlc_train_step(
+                model, cfg, optimizer, group, aug_cfg, bn_train=bn_train)
+        else:
+            pooled_step = dd.make_pooled_dlc_train_step(
+                model, cfg, optimizer, aug_cfg, bn_train=bn_train)
+        scan_k = dd.resolve_scan_iters(scan_iters, True, n_dp)
         print(f"fit_dlc: device-resident pool of {len(data)} images "
               f"({pool.nbytes / 1e6:.0f} MB in device memory)"
               + (", full on-device augmentation" if aug else "")
-              + (f", scan superstep K={scan_k}" if scan_k else ""))
+              + (f", scan superstep K={scan_k}" if scan_k else "")
+              + (f", data-parallel x{n_dp} (global batch {bs * n_dp})"
+                 if n_dp > 1 else ""))
     else:
         if aug:
             print("warning: fit_dlc(aug=True) needs the device-data pool; "
@@ -535,12 +627,17 @@ def fit_dlc(snapshot: str | None = None, dlcpath: str | Path = ".",
 
     start_it = _resume(train_dir, step, "", resume, model, optimizer,
                        "fit_dlc")
+    if group is not None:
+        _replicate_state(model, optimizer, group)
     log = _Log("fit_dlc", train_dir, step, maxiters, displayiters, saveiters,
-               "total_loss", cfg.max_to_keep, tb_log)
+               "total_loss", cfg.max_to_keep, tb_log, group=group)
 
     if use_pool:
+        # over ranks every rank draws the same global batch and
+        # augmentation, and takes its slice
         generator = torch.Generator(device).manual_seed(seed + 1)
-        stream = _index_stream(len(data), bs, deterministic, rng)
+        stream = _index_stream(len(data), bs * max(n_dp, 1), deterministic,
+                               rng)
         if scan_k:
             scan_step = dd.make_pooled_dlc_scan_step(
                 model, cfg, optimizer, aug_cfg, bn_train=bn_train)
@@ -674,9 +771,19 @@ def fit_dgp(snapshot: str = "snapshot-step1-final--0",
     ``lr_decay=True`` anneals the rate with a cosine schedule over the
     step's update count (floor 5% of lr). ``scan_iters=K`` (K > 1) runs K
     updates of the resident pools a dispatch (on the card each one a CUDA
-    graph's replay; ``None`` = 0, off). ``data_parallel`` and
-    ``windows_per_device > 1`` raise (ROADMAP item 16). ``device``: the
-    card by default."""
+    graph's replay; ``None`` = 0, off). ``data_parallel`` (True = the
+    process group's ranks, int = that many) spreads a global batch of
+    ranks x ``windows_per_device`` DGP windows over the ranks in each
+    update: each rank takes the mean loss over its windows, the gradients
+    and (with ``bn_train``) the moving stats are averaged over the ranks
+    (``parallel/train_dp.py``). ``windows_per_device`` batches that many
+    schedule windows a rank into each update, one card included (the
+    gradient of the mean over the windows, each window normalized by its
+    own statistics with ``bn_train``); on one card it composes with
+    ``scan_iters``. Both need the device-data frame pools: without them
+    one process warns and trains one window an update, and ranks of a
+    process group raise ``ValueError``. ``device``: the card by
+    default."""
     return _fit_dgp_impl(
         snapshot=snapshot, dlcpath=dlcpath, shuffle=shuffle, step=step,
         saveiters=saveiters, displayiters=displayiters, maxiters=maxiters,
@@ -698,7 +805,7 @@ def _fit_dgp_impl(snapshot, dlcpath, shuffle, step, saveiters, displayiters,
                   device_flow=False, lr_decay=False,
                   data_parallel=False, windows_per_device=1,
                   scan_iters=None, device=None) -> Path | None:
-    _later_slices(data_parallel, windows_per_device)
+    n_dp = _resolve_data_parallel(data_parallel)
     device = resolve_device(device)
     proj, cfg, train_dir = resolve_project(dlcpath, shuffle, trainingsetindex)
     name = "fit_dgp_labeledonly" if visible_only else "fit_dgp"
@@ -790,13 +897,35 @@ def _fit_dgp_impl(snapshot, dlcpath, shuffle, step, saveiters, displayiters,
         except ValueError as e:
             print(f"warning: {e}; falling back to host batches")
             use_spill = False
+    wpd = max(int(windows_per_device), 1)
+    if wpd > 1 and n_dp == 0:
+        n_dp = 1  # multi-window updates on one device: a group of 1
+    dp_G = n_dp * wpd  # windows an optimizer update (the global batch)
+    if dp_G > 1 and not use_pool:
+        why = ("does not support segment-rotating pools" if use_spill
+               else "requires the device-data frame pools")
+        if n_dp > 1:
+            # every rank would train the whole run alone and write alike
+            raise ValueError(f"fit_dgp(data_parallel={data_parallel}) over "
+                             f"{n_dp} ranks {why}")
+        print(f"warning: fit_dgp(windows_per_device={wpd}) {why}; "
+              "training single-device")
+        n_dp = dp_G = 0
+    elif dp_G <= 1:
+        n_dp = dp_G = 0
+    group = None
+    if dp_G > 1:
+        from deepgraphpose_tpu_torch.parallel import mesh as mesh_lib
+
+        group = mesh_lib.make_mesh(n_dp, device)
 
     # lr_decay anneals the step's rate with a cosine schedule over its
-    # update count (floor 5% of lr); the reference holds its hard-coded
-    # 0.005 flat (fitdgp.py:353, 650)
+    # update count (floor 5% of lr), G windows an update counting once;
+    # the reference holds its hard-coded 0.005 flat (fitdgp.py:353, 650)
+    n_updates = -(-n_iters // dp_G) if dp_G > 1 else n_iters
     if lr_decay:
         lr_or_sched = steps_lib.cosine_decay_schedule(
-            cfg.lr, decay_steps=max(n_iters, 1), alpha=0.05)
+            cfg.lr, decay_steps=max(n_updates, 1), alpha=0.05)
     else:
         lr_or_sched = cfg.lr
     optimizer = steps_lib.make_optimizer(model.parameters(), lr_or_sched,
@@ -806,18 +935,33 @@ def _fit_dgp_impl(snapshot, dlcpath, shuffle, step, saveiters, displayiters,
     # (weights AND optimizer state)
     start_it = _resume(train_dir, step, debug, resume, model, optimizer,
                        f"step {step}")
+    if group is not None:
+        _replicate_state(model, optimizer, group)
 
-    scan_k = dd.resolve_scan_iters(scan_iters) if use_pool else 0
+    scan_k = dd.resolve_scan_iters(scan_iters, use_pool, n_dp)
     if use_pool or use_spill:
         aug_cfg_dev = (dd.DeviceAugmentConfig.reference()
                        if augmenter is not None else None)
-        factory = (dd.make_pooled_dgp_scan_step if scan_k
-                   else dd.make_pooled_dgp_train_step)
-        pooled_step = factory(model, params, optimizer, aug_cfg_dev,
-                              visible_only=visible_only, bn_train=bn_train,
-                              device_flow=flow_on_device)
+        kw = dict(visible_only=visible_only, bn_train=bn_train,
+                  device_flow=flow_on_device)
+        if dp_G > 1 and scan_k:
+            pooled_step = dd.make_pooled_dgp_group_scan_step(
+                model, params, optimizer, aug_cfg_dev, **kw)
+        elif dp_G > 1:
+            from deepgraphpose_tpu_torch.parallel.train_dp import \
+                make_dp_pooled_dgp_train_step
+
+            pooled_step = make_dp_pooled_dgp_train_step(
+                model, params, optimizer, group, aug_cfg_dev, **kw)
+        else:
+            factory = (dd.make_pooled_dgp_scan_step if scan_k
+                       else dd.make_pooled_dgp_train_step)
+            pooled_step = factory(model, params, optimizer, aug_cfg_dev,
+                                  **kw)
         extras = ((", on-device augmentation" if aug_cfg_dev else "")
                   + (", on-device LK flow" if flow_on_device else "")
+                  + (f", data-parallel x{n_dp} devices x {wpd} windows "
+                     f"= {dp_G} windows/update" if dp_G > 1 else "")
                   + (f", scan superstep K={scan_k}" if scan_k else ""))
     if use_pool:
         pools = [dd.FramePool(d, device) for d in mds.datasets]
@@ -853,10 +997,59 @@ def _fit_dgp_impl(snapshot, dlcpath, shuffle, step, saveiters, displayiters,
 
     log = _Log(name, train_dir, step, n_iters, displayiters, save_every,
                "total_loss_visible" if visible_only else "total_loss",
-               cfg.max_to_keep, tb_log, debug)
+               cfg.max_to_keep, tb_log, debug, group=group)
+
+    def window_inputs(ds_i, windows, slots):
+        """The pool rows (G', T) and stacked DGPBatch arrays of the windows
+        at ``slots``; every window passes the anchor rule, so the host
+        stream stays the same on every rank."""
+        rows, batches = [], []
+        for j, frames in enumerate(windows):
+            vis, hid = split_window(ds_i, frames)
+            if j in slots:
+                b = assemble_batch(mds.datasets[ds_i], vis, hid,
+                                   pad_to=pad_to, wt=cfg.wt,
+                                   with_images=False)
+                rows.append(pools[ds_i].rows(b.frames))
+                batches.append(b.as_np())
+        return np.stack(rows), {k: np.stack([x[k] for x in batches])
+                                for k in batches[0]}
 
     generator = torch.Generator(device).manual_seed(seed + 2)
-    if scan_k:
+    if dp_G > 1:
+        # G windows an update: each window slot draws from its own
+        # generator, so the layout does not change the draws
+        groups = _group_schedule_dp(schedule, dp_G, rng)
+        mine = group.shard(dp_G)
+        slots = range(mine.start, mine.stop)
+        generators = dd.window_generators(seed + 2, len(slots), device,
+                                          first=mine.start)
+        start_gi = -(-start_it // dp_G)  # resume at the first whole group
+        if scan_k:
+            for ds_i, a, b in dd.iter_group_scan_runs(
+                    [g[0] for g in groups], start_gi, save_every, dp_G,
+                    scan_k):
+                inputs = [window_inputs(ds_i, groups[gi][1], slots)
+                          for gi in range(a, b)]
+                batch = {k: host_to_device(np.stack([x[1][k]
+                                                     for x in inputs]),
+                                           device) for k in inputs[0][1]}
+                outs = pooled_step(pools[ds_i].images,
+                                   host_to_device(np.stack(
+                                       [x[0] for x in inputs]), device),
+                                   batch, generators)
+                _log_chunk(log, [gi * dp_G for gi in range(a, b)], outs,
+                           model, optimizer, dp_G)
+        else:
+            for gi in range(start_gi, len(groups)):
+                ds_i, windows = groups[gi]
+                rows, batch = window_inputs(ds_i, windows, slots)
+                out = pooled_step(pools[ds_i].images,
+                                  host_to_device(rows, device),
+                                  {k: host_to_device(v, device)
+                                   for k, v in batch.items()}, generators)
+                log(gi * dp_G, out, model, optimizer, dp_G)
+    elif scan_k:
         for ds_i, a, b in dd.iter_scan_runs(schedule, start_it, save_every,
                                             scan_k):
             rows, batches = [], []

@@ -158,12 +158,15 @@ def cosine_decay_schedule(init_value: float, decay_steps: int,
 
 def dlc_supervised_loss(heads: dict, coords_xy: torch.Tensor,
                         present: torch.Tensor, cfg: PoseConfig,
-                        scale: torch.Tensor | float = 1.0) -> dict:
+                        scale: torch.Tensor | float = 1.0,
+                        all_sum=None) -> dict:
     """Plain DLC loss: scoremap sigmoid CE + locref Huber.
 
     ref: pose_net.py:165-196 (train). Targets are rasterized on the device
     from pixel coords (already in input-image space, i.e. post
-    global_scale).
+    global_scale). ``all_sum`` (a data group's differentiable sum over its
+    ranks) makes each term the global batch's, as one device with the
+    whole batch computes it (``parallel/train_dp.py``).
     """
     pred = heads["part_pred"]
     t, h, w, nj = pred.shape
@@ -171,19 +174,20 @@ def dlc_supervised_loss(heads: dict, coords_xy: torch.Tensor,
         coords_xy, present, h, w, cfg.stride, cfg.pos_dist_thresh,
         cfg.locref_stdev, scale=scale)
     out = {}
-    out["part_loss"] = losses_ops.sigmoid_cross_entropy(scmap, pred)
+    out["part_loss"] = losses_ops.sigmoid_cross_entropy(scmap, pred,
+                                                        all_sum=all_sum)
     total = out["part_loss"]
     if cfg.intermediate_supervision and "part_pred_interm" in heads:
         out["part_loss_interm"] = losses_ops.sigmoid_cross_entropy(
-            scmap, heads["part_pred_interm"])
+            scmap, heads["part_pred_interm"], all_sum=all_sum)
         total = total + out["part_loss_interm"]
     if cfg.location_refinement:
         if cfg.locref_huber_loss:
             out["locref_loss"] = cfg.locref_loss_weight * losses_ops.huber_loss(
-                locref_map, heads["locref"], locref_mask)
+                locref_map, heads["locref"], locref_mask, all_sum=all_sum)
         else:
             out["locref_loss"] = cfg.locref_loss_weight * losses_ops.mse_loss(
-                locref_map, heads["locref"], locref_mask)
+                locref_map, heads["locref"], locref_mask, all_sum=all_sum)
         total = total + out["locref_loss"]
     out["total_loss"] = total
     return out

@@ -22,7 +22,9 @@ both:
   through the port's pools equal its host feed within 1e-6 of each
   tensor's largest value, and agree with the JAX package's pooled runs
   within the tolerances above;
-* the options of later slices raise, naming their ROADMAP item, and the
+* the options that raised until their slice (data parallelism and the
+  multi-window updates, ROADMAP item 16) run at world 1 (the two-rank
+  runs and the JAX parity are ``tests/test_torch_fit_dp.py``'s), and the
   reference's own fallbacks warn as it does (the spill tier, the
   superstep and the device flow have their own files:
   ``tests/test_torch_{spill,superstep,flow_device}.py``).
@@ -285,16 +287,42 @@ def test_pooled_augmented_runs_on_the_pools(tiny_resnet, base_project,
     assert np.isfinite([v for _, v in logged_losses(root)]).all()
 
 
+def final_snapshot_loads(root: Path, step: int) -> None:
+    """The step's final snapshot loads into a port model whose forward is
+    finite."""
+    from deepgraphpose_tpu_torch.models.pose_model import PoseModel
+
+    _, cfg, _ = paths.resolve_project(root)
+    model = PoseModel(cfg)
+    model.load_state_dict(final_params(root, step), strict=True)
+    with torch.no_grad():
+        out = model.eval()(torch.zeros((1, *HW, 3), dtype=torch.uint8))
+    assert torch.isfinite(out["part_pred"]).all()
+
+
+# the options that raised until their slice (``item``: the ROADMAP item
+# that brought them) now run on the CPU, in a data group of world 1
 @pytest.mark.parametrize("kw,item", [
     (dict(data_parallel=True), "item 16"),
     (dict(data_parallel=2), "item 16"),
 ])
 def test_fit_dlc_raises_for_later_slices(tiny_resnet, base_project, work,
                                          kw, item):
+    """``data_parallel=True`` is the process group's world, 1 here: the
+    single-device run, finite losses and a final snapshot that loads.
+    ``data_parallel=2`` asks for more ranks than the world has: the
+    reference's ValueError (``deepgraphpose_tpu/train/fit.py:82-90``);
+    ``tests/test_torch_fit_dp.py`` runs two ranks."""
     root = project_copy(base_project, work / "p")
-    with pytest.raises(NotImplementedError, match=item):
-        fit.fit_dlc(snapshot=WARM, dlcpath=root, maxiters=1, device="cpu",
-                    **kw)
+    if kw["data_parallel"] is not True:
+        with pytest.raises(ValueError, match="exceeds the 1 ranks"):
+            fit.fit_dlc(snapshot=WARM, dlcpath=root, maxiters=1,
+                        device="cpu", **kw)
+        return
+    fit.fit_dlc(snapshot=WARM, dlcpath=root, maxiters=2, displayiters=1,
+                device="cpu", **kw)
+    assert np.isfinite([v for _, v in logged_losses(root)]).all()
+    final_snapshot_loads(root, 0)
 
 
 @pytest.mark.parametrize("kw,item", [
@@ -303,11 +331,22 @@ def test_fit_dlc_raises_for_later_slices(tiny_resnet, base_project, work,
     (dict(windows_per_device=4, wt=1.0, device_flow=True), "item 16"),
 ])
 def test_fit_dgp_raises_for_later_slices(tiny_resnet, base_project, work,
-                                         kw, item):
+                                         capsys, kw, item):
+    """Each option runs at world 1: ``data_parallel=True`` as the
+    single-window run, ``windows_per_device`` as the group update over
+    the frame pool (with the device flow for wt > 0); finite losses and a
+    final snapshot that loads."""
     root = project_copy(base_project, work / "p")
-    with pytest.raises(NotImplementedError, match=item):
-        fit.fit_dgp(snapshot=WARM, dlcpath=root, batch_size=3, maxiters=1,
-                    nepoch=1, device="cpu", **kw)
+    fit.fit_dgp(snapshot=WARM, dlcpath=root, batch_size=3, maxiters=8,
+                displayiters=1, nepoch=1, device="cpu", **kw)
+    out = capsys.readouterr().out
+    g = kw.get("windows_per_device", 1)
+    assert (f"x {g} windows = {g} windows/update" in out) == (g > 1)
+    assert ("on-device LK flow" in out) == ("device_flow" in kw)
+    losses = logged_losses(root)
+    assert losses and np.isfinite([v for _, v in losses]).all()
+    assert [it for it, _ in losses] == list(range(0, len(losses) * g, g))
+    final_snapshot_loads(root, 2)
 
 
 @pytest.mark.parametrize("device_data", [None, True])

@@ -446,3 +446,31 @@ def test_estimate_pose_dynamic_video_matches_jax(synthetic_project, tmp_path,
         assert err.max() <= 1e-3
         np.testing.assert_allclose(got["likelihoods"], want["likelihoods"],
                                    rtol=0, atol=1e-4)
+
+
+def test_tf_warm_start_imports_every_backbone_variable(tmp_path, capsys):
+    """fit's ImageNet warm start from a MobileNetV2 TF checkpoint (written
+    here by the JAX package's ``write_tf_checkpoint``): the port restores
+    under ``MobilenetV2`` and imports every backbone variable, moving
+    stats included, and reports ``warmed`` (so fit keeps batch-norm
+    frozen). The heads keep their init: an ImageNet file has none."""
+    net = STEP_NET
+    jm = JaxPoseModel(JaxPoseConfig(net_type=net, num_joints=3))
+    variables = random_variables(jm, SIZES[0], seed=9)
+    prefix = jax_tf_import.write_tf_checkpoint(
+        variables, str(tmp_path / "mobilenet_v2_0.35_224.ckpt"),
+        net_type=net)
+    cfg = PoseConfig(net_type=net, num_joints=3, init_weights=prefix)
+    model = fit._init_model(cfg, 0, None, "cpu")
+    heads_before = {k: v.clone() for k, v in model.state_dict().items()
+                    if not k.startswith("backbone.")}
+    model, warmed = fit._warm_start(model, cfg, tmp_path, None)
+    assert warmed
+    want = ckpt.state_dict_from_flax(variables)
+    state = model.state_dict()
+    backbone = [k for k in state if k.startswith("backbone.")]
+    assert backbone and all(torch.equal(state[k], want[k]) for k in backbone)
+    assert all(torch.equal(state[k], v) for k, v in heads_before.items())
+    line = capsys.readouterr().out
+    assert f"imported ImageNet init {prefix}" in line
+    assert f"({len(backbone)} vars)" in line

@@ -86,6 +86,33 @@ def test_pose_model_matches_jax(tiny_resnet, output_stride):
     torch.testing.assert_close(only["part_pred"], got["part_pred"])
 
 
+@pytest.mark.parametrize("net_type", ["resnet_101", "resnet_152"])
+def test_deep_resnets_match_jax(net_type):
+    """The deeper trunks of ``BLOCK_UNITS`` (block3 of 23 and 36 units,
+    block2 of 8 for ResNet-152) through the weights bridge, one frame at
+    the odd input: every head within 1e-4 of its largest logit."""
+    kw = dict(net_type=net_type, num_joints=3, intermediate_supervision=True)
+    jm = JaxPoseModel(JaxPoseConfig(**kw))
+    shapes = jax.eval_shape(lambda: jm.init(
+        jax.random.PRNGKey(0), jnp.zeros((1, *IN_HW, 3))))
+    variables = random_variables(shapes, seed=4)
+    images = np.random.default_rng(5).integers(
+        0, 256, (1, *IN_HW, 3)).astype(np.uint8)
+    want = jm.apply(variables, jnp.asarray(images, jnp.float32))
+
+    model = PoseModel(PoseConfig(**kw)).eval()
+    model.load_state_dict(state_dict_from_flax(variables), strict=True)
+    assert len(model.backbone.unit_names) == sum(
+        torch_resnet.BLOCK_UNITS[net_type])
+    with torch.no_grad():
+        got = model(torch.from_numpy(images))
+    assert set(got) == set(want)
+    for key, value in got.items():
+        ref = np.asarray(want[key])
+        err = np.abs(value.numpy() - ref).max()
+        assert err <= 1e-4 * np.abs(ref).max(), (key, err)
+
+
 @pytest.mark.parametrize("output_stride", [16, 8])
 @pytest.mark.parametrize("hw", [IN_HW, (64, 80), (747, 832)])
 def test_scoremap_size_matches_jax(output_stride, hw):

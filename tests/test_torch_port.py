@@ -64,7 +64,11 @@ def test_port_imports_without_jax():
             "deepgraphpose_tpu_torch.evaluation.metrics",
             "deepgraphpose_tpu_torch.evaluation.filtering",
             "deepgraphpose_tpu_torch.evaluation.outliers",
-            "deepgraphpose_tpu_torch.evaluation.skeleton"} <= set(
+            "deepgraphpose_tpu_torch.evaluation.skeleton",
+            "deepgraphpose_tpu_torch.parallel.mesh",
+            "deepgraphpose_tpu_torch.parallel.distributed",
+            "deepgraphpose_tpu_torch.parallel.train_dp",
+            "deepgraphpose_tpu_torch.parallel.streaming"} <= set(
                 port_modules())
 
 
