@@ -114,8 +114,10 @@ last line is then never printed:
     ``estimate_pose`` from the step-2 final snapshot;
 13b. analysis: what users run after training, on the fit project and
     its step-2 final snapshot, each path's launches counted from 0:
-    ``analyze_videos`` full frame (its trajectories, read back from the
-    CSV, within 1e-4 px of the fit phase's ``estimate_pose``), with
+    ``analyze_videos`` full frame (timed; its trajectories, read back from
+    the CSV, reported against the fit phase's ``estimate_pose``), again
+    beside ``estimate_pose`` under deterministic cuDNN (within 1e-4 px:
+    autotuned float32 convolutions differ from call to call), with
     dynamic=(True, 0.5, 10), with num_outputs=3 (the DLC top-k decode: no
     decode kernel; its first peak is the argmax decode of the same heads,
     and the card's top-k locations equal, its values within 1e-5 of, the
@@ -156,6 +158,36 @@ last line is then never printed:
     fit project's video in bf16 and int8: raw within 1e-4 px of
     ``estimate_pose`` on the same snapshot and batches, smoothed within
     1e-5 of ``ewma_reference``, frames/s;
+13d. serving: ``infer/serving.py`` on the step-2 final snapshot at
+    747x832: ``export_from_snapshot`` in float32 at batch 16, loaded in
+    this process, (mu, likelihood) within 1e-5 of ``infer_forward`` on the
+    same weights and batches (TF32 off) and frames/s beside
+    ``make_infer_fn``; in bfloat16 at batch 128 beside the live bf16 model;
+    int8 (``quantize=True``, calibrated on the video's first 8 frames
+    resized to 747x832) against the live int8 model of the same recipe on
+    the next 16 frames (within 1e-2 px; its logits within the int8 bounds
+    of phase 8 there), with ``mm_tiled``
+    and ``conv_int8`` launched by the loaded program; the float32 artifact
+    in a fresh process (this script with ``--serve-worker``) that imports
+    only ``deepgraphpose_tpu_torch.infer.serving`` with JAX blocked (the
+    decode launched there, the result within 1e-5 of this process's); each
+    artifact's size, export and load seconds;
+13e. headonly: ``fit_dlc_heads`` from the fit phase's step-0 final
+    snapshot, 210 updates: steps/s beside the fit phase's fit_dlc, the
+    feature cache's bytes and forward seconds; the loss falls, the
+    backbone is bit-identical to the step-0 snapshot, the heads moved, and
+    ``estimate_pose`` runs from the snapshot written;
+13f. render: ``plot_dgp`` from the step-2 snapshot on the fit project's
+    video under deterministic cuDNN (the MP4 holds all 120 frames, its
+    trajectories within 1e-4 px of ``estimate_pose``'s; wall frames/s, with
+    ``estimate_pose`` and the draw/encode seconds apart), then with
+    ``quantize=True``; the labeled frames' scoremaps
+    (``extract_save_all_maps``, or, where matplotlib is absent, its maps
+    without the drawing), ``evaluate_network(plotting=True)`` and
+    ``display_dataset`` (where matplotlib is absent, their ImportError is
+    reported on a ``render_not_run`` line), ``utils/profiling.trace``
+    around one served batch (the trace holds the decode kernel), and
+    ``device_memory_stats``;
 14. profile: where the device time goes, from torch.profiler over 3
     full-frame batches, 3 MobileNetV2 full-frame batches (its depthwise
     convs a class of their own), 3 tracked-crop steps, 3 int8 full-frame
@@ -171,7 +203,8 @@ last line is then never printed:
 Every kernel wrapper counts its launches (a superstep adds each graph
 replay's captured launches); the counts are set to 0 just before each
 main-path run (phases 4, 5, 8, 10, 10b, 12, each fit run, each
-analysis path and each parallel path, a rank's in its own process) and
+analysis path, each parallel path, a rank's in its own process, and each
+served, head-only and render path) and
 read just after, and every kernel that the path runs
 must show launches > 0. The
 weights are random, from a seeded torch.Generator; nothing is read from
@@ -2217,6 +2250,7 @@ def phase_analysis(device, root, pose: dict, final: Path) -> dict:
     from deepgraphpose_tpu_torch.evaluation import metrics
     from deepgraphpose_tpu_torch.infer import analyze
     from deepgraphpose_tpu_torch.infer.export import load_pose_from_dlc
+    from deepgraphpose_tpu_torch.infer.predict import estimate_pose
 
     t_phase = time.perf_counter()
     config = root / "config.yaml"
@@ -2244,7 +2278,20 @@ def phase_analysis(device, root, pose: dict, final: Path) -> dict:
                      [video], destfolder=out / "full", device=device)
         stem = f"{video.stem}{scorer}"
         full = trajectories(out / "full", stem)
-        want = np.stack([pose["x"], pose["y"], pose["likelihoods"]], -1)
+        autotuned = np.stack([pose["x"], pose["y"], pose["likelihoods"]],
+                             -1)
+        # the same path against estimate_pose under deterministic cuDNN:
+        # autotuned float32 convolutions differ from call to call
+        # (check_repeat.py: 1.5e-5 in the logits of one batch repeated,
+        # 3.1e-4 px after the decode), so two autotuned runs of one path
+        # need not match to 1e-4 px
+        with deterministic():
+            want = estimate_pose(config, final, video, out / "ref",
+                                 save_pose=False, device=device)
+            run("analyze_videos_deterministic", analyze.analyze_videos,
+                config, [video], destfolder=out / "det", device=device)
+        want = np.stack([want["x"], want["y"], want["likelihoods"]], -1)
+        det = trajectories(out / "det", stem)
         run("analyze_videos_dynamic", analyze.analyze_videos, config,
             [video], destfolder=out / "dynamic", dynamic=(True, 0.5, 10),
             device=device)
@@ -2292,9 +2339,11 @@ def phase_analysis(device, root, pose: dict, final: Path) -> dict:
             for path in ("analyze_videos", "analyze_videos_fast")},
         "seconds": seconds, "cpu_evaluate_s": cpu_s,
         "full_vs_estimate_pose_px": float(
-            np.abs(full[..., :2] - want[..., :2]).max()),
+            np.abs(det[..., :2] - want[..., :2]).max()),
         "full_vs_estimate_pose_lik": float(
-            np.abs(full[..., 2] - want[..., 2]).max()),
+            np.abs(det[..., 2] - want[..., 2]).max()),
+        "autotuned_full_vs_estimate_pose_px": float(
+            np.abs(full[..., :2] - autotuned[..., :2]).max()),
         "dynamic_shape": list(dynamic.shape),
         "top3_first_peak_vs_argmax": float(
             np.abs(first_peak - topk["argmax"]).max()),
@@ -2313,7 +2362,7 @@ def phase_analysis(device, root, pose: dict, final: Path) -> dict:
     failed = [name for name, ok in {
         "the step-2 final snapshot": snapshot == final,
         "full frame equals estimate_pose": (
-            full.shape == want.shape
+            det.shape == want.shape == full.shape
             and line["full_vs_estimate_pose_px"] <= ANALYSIS_EQUAL_PX
             and line["full_vs_estimate_pose_lik"] <= ANALYSIS_EQUAL_PX),
         "dynamic finite": (dynamic.shape[0] == frames
@@ -2332,7 +2381,8 @@ def phase_analysis(device, root, pose: dict, final: Path) -> dict:
         "f32 card against CPU": (
             line["f32_card_vs_cpu_px"] <= EVAL_CARD_CPU_PX),
         "decode on its paths": all(decode[p] > 0 for p in (
-            "analyze_videos", "analyze_videos_dynamic",
+            "analyze_videos", "analyze_videos_deterministic",
+            "analyze_videos_dynamic",
             "analyze_videos_fast", "analyze_time_lapse_frames",
             "evaluate_network", "evaluate_dgp_int8", "evaluate_dgp_f32")),
         "no decode on the DLC decodes": (
@@ -2930,6 +2980,536 @@ def phase_parallel(device, workdir, final) -> dict:
     return launches
 
 
+# the serving, head-only and render phases: what users run on the card
+# after training, on the fit project and its snapshots
+SERVE_BATCH = 16               # export_from_snapshot's default batch
+SERVE_BATCHES = 8              # timed batches a path
+SERVE_TOL = 1e-5               # served float32 against infer_forward
+SERVE_INT8_PX = 1e-2           # served int8 against the live int8 model
+HEAD_ITERS, HEAD_DISPLAY = 210, 10   # fit_dlc_heads updates, display sync
+RENDER_EQUAL_PX = 1e-4         # plot_dgp's trajectories against estimate_pose
+BLOCKED = ("jax", "flax", "optax", "deepgraphpose_tpu")
+
+
+def serve_batches(n: int, batch: int, seed: int):
+    """``n`` seeded uint8 batches of (batch, *HW, 3) on the host."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, 256, (batch, *HW, 3), dtype=np.uint8)
+            for _ in range(n)]
+
+
+def frames_per_s(fn, ring, batches: int) -> float:
+    """Frames/s of ``batches`` calls of ``fn`` cycling through the device
+    ``ring``, after one warm-up call (cuDNN autotunes the shape)."""
+    import torch
+
+    fn(ring[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(batches):
+        fn(ring[i % len(ring)])
+    torch.cuda.synchronize()
+    return batches * ring[0].shape[0] / (time.perf_counter() - t0)
+
+
+def serve_worker(art: str, inputs: str, out: str) -> int:
+    """A fresh process that imports only ``infer.serving`` (JAX blocked):
+    loads the artifact, runs it on the saved batch with the decode's
+    launches counted, and saves mu, lik and what it imported to ``out``."""
+    for name in BLOCKED:
+        sys.modules[name] = None
+    sys.path.insert(0, str(ROOT))
+    import numpy as np
+    import torch
+
+    from deepgraphpose_tpu_torch.infer import serving
+
+    t0 = time.perf_counter()
+    call, meta = serving.load_infer_artifact(art)
+    load_s = time.perf_counter() - t0
+    x = np.load(inputs)
+    call(x)[0].cpu()
+    before = serving.softargmax_kernel.launches
+    mu, lik = (t.cpu() for t in call(x))
+    torch.save({"mu": mu, "lik": lik, "load_s": load_s,
+                "launches": serving.softargmax_kernel.launches - before,
+                "platforms": meta["platforms"],
+                "blocked_loaded": sorted(
+                    m for m, mod in sys.modules.items()
+                    if m.split(".")[0] in BLOCKED and mod is not None),
+                "port_modules": sum(m.startswith("deepgraphpose_tpu_torch")
+                                    for m in sys.modules)}, out)
+    return 0
+
+
+def phase_serving(device, workdir, final) -> tuple[dict, Path]:
+    """export_from_snapshot of the step-2 final snapshot ``final`` at
+    747x832: float32 at batch SERVE_BATCH against infer_forward on the same
+    weights and batches (TF32 off) and beside make_infer_fn in frames/s;
+    bfloat16 at batch BATCH beside the live bf16 model; int8
+    (quantize=True, calibrated on the video's frames resized to 747x832)
+    against the live int8 model built the same way; the float32 artifact
+    again in a fresh process that imports only infer.serving. Each served
+    path's launches are counted from 0. Returns ({path: launches}, the
+    float32 artifact)."""
+    import numpy as np
+    import torch
+
+    from deepgraphpose_tpu_torch.core.paths import resolve_project
+    from deepgraphpose_tpu_torch.infer import serving
+    from deepgraphpose_tpu_torch.infer.predict import (infer_forward,
+                                                       load_model,
+                                                       make_infer_fn)
+    from deepgraphpose_tpu_torch.models.quant import (calib_frames_from_video,
+                                                      quantize_model)
+
+    t_phase = time.perf_counter()
+    workdir = Path(workdir)
+    root = workdir / "fit_project"
+    config = root / "config.yaml"
+    _, cfg, _ = resolve_project(root)
+    lines, launches, arts = {}, {}, {}
+
+    def export(name, **kw):
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):
+            art = serving.export_from_snapshot(
+                config, final.name, workdir / f"serve_{name}.pt2",
+                in_hw=HW, device=device, **kw)
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        call, meta = serving.load_infer_artifact(art)
+        arts[name] = art
+        return call, meta, {"export_s": export_s,
+                            "load_s": time.perf_counter() - t0,
+                            "mb": art.stat().st_size / 1e6,
+                            "platforms": meta["platforms"]}
+
+    def served(name, call, ring):
+        """The loaded artifact's outputs on ``ring``, launches counted."""
+        outs, _, launches[name] = counted(lambda: [call(x) for x in ring])
+        return outs
+
+    host = serve_batches(2, SERVE_BATCH, SEED + 5)
+    ring = [torch.from_numpy(x).to(device) for x in host]
+
+    # float32 at batch 16 against infer_forward on the same weights
+    call, meta, line = export("f32", batch_size=SERVE_BATCH)
+    f32 = load_model(cfg, final, torch.float32, device)
+    outs = served("serving_f32", call, ring)
+    want = [infer_forward(f32, cfg, x) for x in ring]
+    err = max(max(((g - w).abs() / (SERVE_TOL + SERVE_TOL * w.abs())).max()
+                  .item() for g, w in zip(got, ref))
+              for got, ref in zip(outs, want))
+    fps = {"served": [], "make_infer_fn": []}
+    live = make_infer_fn(f32, cfg)
+    for which in ("served", "make_infer_fn", "make_infer_fn", "served"):
+        fps[which].append(frames_per_s(call if which == "served" else live,
+                                       ring, SERVE_BATCHES))
+    lines["f32"] = dict(line, batch=SERVE_BATCH, meta_keys=sorted(meta),
+                        vs_infer_forward_tol_units=err,
+                        frames_per_s=fps)
+
+    # the fresh process: the same artifact and first batch
+    np.save(workdir / "serve_in.npy", host[0])
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, str(Path(__file__).resolve()), "--serve-worker",
+         str(arts["f32"]), str(workdir / "serve_in.npy"),
+         str(workdir / "serve_out.pt")], cwd=str(ROOT), capture_output=True,
+        text=True, timeout=600)
+    fresh = (torch.load(workdir / "serve_out.pt") if res.returncode == 0
+             else None)
+    lines["fresh_process"] = {
+        "rc": res.returncode, "seconds": time.perf_counter() - t0,
+        "stderr_tail": res.stderr[-400:] if res.returncode else "",
+        **({"load_s": fresh["load_s"], "launches": fresh["launches"],
+            "platforms": fresh["platforms"],
+            "blocked_loaded": fresh["blocked_loaded"],
+            "port_modules": fresh["port_modules"],
+            "vs_this_process": max(
+                (fresh["mu"] - outs[0][0].cpu()).abs().max().item(),
+                (fresh["lik"] - outs[0][1].cpu()).abs().max().item())}
+           if fresh else {})}
+    if fresh:
+        launches["serving_fresh_process"] = {
+            **{k: 0 for k in read_launches()},
+            "softargmax_likelihood": fresh["launches"]}
+    del live, call
+    torch.cuda.empty_cache()
+
+    # bfloat16 at batch 128 beside the live bf16 model
+    call, meta, line = export("bf16", batch_size=BATCH,
+                              compute_dtype="bfloat16")
+    bf16 = load_model(cfg, final, torch.bfloat16, device)
+    gen = torch.Generator(device=device).manual_seed(SEED + 6)
+    big = [torch.randint(0, 256, (BATCH, *HW, 3), generator=gen,
+                         dtype=torch.uint8, device=device) for _ in range(2)]
+    outs = served("serving_bf16", call, big[:1])
+    mu_live, _ = infer_forward(bf16, cfg, big[0])
+    live = make_infer_fn(bf16, cfg)
+    fps = {"served": [], "make_infer_fn": []}
+    for which in ("served", "make_infer_fn", "make_infer_fn", "served"):
+        fps[which].append(frames_per_s(call if which == "served" else live,
+                                       big, FRAMES // BATCH))
+    lines["bf16"] = dict(line, batch=BATCH, frames_per_s=fps,
+                         vs_live_px=((outs[0][0] - mu_live).abs().max()
+                                     * cfg.stride).item())
+    del live, call, bf16, big
+    torch.cuda.empty_cache()
+
+    # int8 against the live int8 model of the same recipe (calibrated on
+    # the video's first 8 frames), on the next SERVE_BATCH frames
+    call, meta, line = export("int8", batch_size=SERVE_BATCH, quantize=True)
+    frames = calib_frames_from_video(root / "videos_dgp" / "synthvid.avi",
+                                     8 + SERVE_BATCH, resize_to=HW)
+    qmodel = quantize_model(cfg, f32, frames[:8])
+    held = torch.from_numpy(frames[8:]).to(device)
+    outs = served("serving_int8", call, [held])
+    mu_q, _ = infer_forward(qmodel, cfg, held)
+    with torch.inference_mode():
+        q = qmodel(held, heads=("part_pred",))["part_pred"]
+        f = f32(held, heads=("part_pred",))["part_pred"]
+    rel = ((q - f).abs().max() / f.abs().max()).item()
+    corr = float(np.corrcoef(f.cpu().numpy().ravel(),
+                             q.cpu().numpy().ravel())[0, 1])
+    fps = frames_per_s(call, ring, SERVE_BATCHES)
+    lines["int8"] = dict(line, batch=SERVE_BATCH, frames_per_s=fps,
+                         quantized_int8=meta["quantized_int8"],
+                         vs_live_int8_px=((outs[0][0] - mu_q).abs().max()
+                                          * cfg.stride).item(),
+                         live_logits_vs_f32={"rel_err": rel, "corr": corr})
+    del call, qmodel, f32
+    torch.cuda.empty_cache()
+
+    out = {"phase": "serving", "hw": list(HW), "snapshot": final.name,
+           **lines, "launches": launches,
+           "seconds": time.perf_counter() - t_phase}
+    emit(out)
+    gemm = ("mm_tiled", "conv_int8")
+    failed = [name for name, ok in {
+        "f32 within 1e-5 of infer_forward": err <= 1.0,
+        "decode on every served path": all(
+            launches[p]["softargmax_likelihood"] > 0 for p in (
+                "serving_f32", "serving_bf16", "serving_int8")),
+        "GEMM kernels on the int8 artifact": all(
+            launches["serving_int8"][k] > 0 for k in gemm),
+        "no GEMM on the float artifacts": all(
+            launches[p][k] == 0 for p in ("serving_f32", "serving_bf16")
+            for k in gemm),
+        "int8 sidecar": lines["int8"]["quantized_int8"] is True,
+        "int8 against the live int8 model": (
+            lines["int8"]["vs_live_int8_px"] <= SERVE_INT8_PX),
+        "live int8 logits within the int8 bounds": (
+            rel < INT8_REL_ERR and corr > INT8_CORR),
+        "bf16 finite": np.isfinite(lines["bf16"]["vs_live_px"]),
+        "fresh process ran, JAX blocked": bool(
+            fresh and not fresh["blocked_loaded"]),
+        "fresh process launched the decode": bool(
+            fresh and fresh["launches"] > 0),
+        "fresh process matches": bool(
+            fresh and lines["fresh_process"]["vs_this_process"]
+            <= SERVE_TOL),
+        "artifacts on the card": all(
+            lines[k]["platforms"] == ["cuda"] for k in ("f32", "bf16",
+                                                         "int8")),
+    }.items() if not ok]
+    if failed:
+        raise AssertionError(f"serving checks failed: {failed}")
+    return launches, arts["f32"]
+
+
+class TimedLines:
+    """A stdout that keeps what is printed and when each line was written
+    (the display lines of a training loop follow its syncs)."""
+
+    def __init__(self):
+        self.lines = []
+
+    def write(self, text: str) -> int:
+        now = time.perf_counter()
+        for line in text.splitlines():
+            if line.strip():
+                self.lines.append((now, line))
+        return len(text)
+
+    def flush(self) -> None:
+        pass
+
+
+def phase_headonly(device, workdir, fit_lines) -> dict:
+    """fit_dlc_heads from the fit phase's step-0 final snapshot: steps/s
+    between its display syncs at HEAD_DISPLAY and the last, beside the
+    fit phase's fit_dlc; the feature cache's bytes and forward seconds;
+    the loss falls, the backbone is bit-identical to the step-0 snapshot,
+    the heads moved; the snapshot written runs in estimate_pose. Returns
+    {path: launches}."""
+    import numpy as np
+    import torch
+
+    from deepgraphpose_tpu_torch.core import checkpoint
+    from deepgraphpose_tpu_torch.core.paths import resolve_project
+    from deepgraphpose_tpu_torch.infer.predict import estimate_pose
+    from deepgraphpose_tpu_torch.train import headonly
+
+    root = Path(workdir) / "fit_project"
+    _, _, train_dir = resolve_project(root)
+    cache = {}
+    precompute = headonly.precompute_features
+
+    def timed_features(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        feats = precompute(*args, **kwargs)
+        torch.cuda.synchronize()
+        cache.update(seconds=time.perf_counter() - t0,
+                     bytes=feats.numel() * feats.element_size(),
+                     shape=list(feats.shape))
+        return feats
+
+    printed = TimedLines()
+    torch.cuda.reset_peak_memory_stats()
+    headonly.precompute_features = timed_features
+    try:
+        with contextlib.redirect_stdout(printed):
+            snap, wall, launches = counted(
+                headonly.fit_dlc_heads, dlcpath=root,
+                snapshot="snapshot-step0-final--0", maxiters=HEAD_ITERS,
+                displayiters=HEAD_DISPLAY, device=device)
+    finally:
+        headonly.precompute_features = precompute
+    for _, line in printed.lines:
+        print(line, file=sys.stderr)
+    syncs = [(t, int(m.group(1)), float(m.group(2))) for t, line in
+             printed.lines for m in [re.match(
+                 r"\[fit_dlc_heads\] iter (\d+)/\d+ loss ([\d.]+)", line)]
+             if m]
+    (t_a, it_a, _), (t_b, it_b, _) = syncs[1], syncs[-1]
+    losses = [loss for _, _, loss in syncs]
+    before, _ = checkpoint.load_snapshot(
+        train_dir / "snapshot-step0-final--0.ckpt")
+    after, _ = checkpoint.load_snapshot(snap)
+
+    def leaves(tree, prefix=()):
+        if isinstance(tree, dict):
+            for k in sorted(tree):
+                yield from leaves(tree[k], prefix + (k,))
+        else:
+            yield prefix, np.asarray(tree)
+
+    backbone_equal, heads_moved = True, []
+    for coll in ("params", "batch_stats"):
+        for (path, a), (_, b) in zip(leaves(after[coll]),
+                                     leaves(before[coll]), strict=True):
+            if path[0] in headonly.HEAD_KEYS:
+                heads_moved.append(not np.array_equal(a, b))
+            else:
+                backbone_equal &= bool(np.array_equal(a, b))
+    with contextlib.redirect_stdout(sys.stderr):
+        pose, pose_s, pose_launches = counted(
+            estimate_pose, root / "config.yaml", snap,
+            root / "videos_dgp" / "synthvid.avi", root / "videos_pred",
+            save_pose=False, max_frames=32, device=device)
+    fit_dlc = next(r for r in fit_lines if r["run"] == "fit_dlc")
+    out = {"phase": "headonly", "snapshot": snap.name, "wall_s": wall,
+           "updates": HEAD_ITERS, "timed_iterations": [it_a + 1, it_b],
+           "steps_per_s": (it_b - it_a) / (t_b - t_a),
+           "fit_dlc_steps_per_s": fit_dlc["steps_per_s"],
+           "feature_cache": cache,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "first_loss": losses[0], "last_loss": losses[-1],
+           "backbone_bit_identical": backbone_equal,
+           "heads_moved": all(heads_moved) and bool(heads_moved),
+           "estimate_pose": {"frames": int(pose["x"].shape[0]),
+                             "seconds": pose_s,
+                             "finite": bool(np.isfinite(pose["x"]).all())},
+           "launches": launches, "estimate_pose_launches": pose_launches}
+    emit(out)
+    if not (out["backbone_bit_identical"] and out["heads_moved"]
+            and np.mean(losses[-3:]) < np.mean(losses[:3])
+            and out["estimate_pose"]["finite"]
+            and pose_launches["softargmax_likelihood"] > 0
+            and not any(launches.values())):
+        raise AssertionError(f"headonly checks failed: {out}")
+    return {"fit_dlc_heads": launches,
+            "fit_dlc_heads_estimate_pose": pose_launches}
+
+
+def phase_render(device, workdir, final, served: Path) -> dict:
+    """plot_dgp from the step-2 snapshot on the fit project's video (the MP4
+    holds every frame, its trajectories are estimate_pose's, both under
+    deterministic cuDNN; wall frames/s with estimate_pose and the
+    draw/encode apart), plot_dgp(quantize=True),
+    the scoremaps of the labeled frames (extract_save_all_maps where
+    matplotlib imports, else the maps without the drawing),
+    evaluate_network(plotting=True) and display_dataset where matplotlib
+    imports, utils/profiling.trace around a batch of the ``served``
+    artifact, and device_memory_stats. Returns {path: launches}."""
+    import importlib.util
+
+    import numpy as np
+    import torch
+
+    from deepgraphpose_tpu_torch.data.video import VideoReader
+    from deepgraphpose_tpu_torch.evaluation import maps, metrics
+    from deepgraphpose_tpu_torch.infer import predict, serving, video_writer
+    from deepgraphpose_tpu_torch.infer.export import load_pose_from_dlc
+    from deepgraphpose_tpu_torch.utils import profiling
+
+    t_phase = time.perf_counter()
+    root = Path(workdir) / "fit_project"
+    config = root / "config.yaml"
+    video = root / "videos_dgp" / "synthvid.avi"
+    launches, line, not_run = {}, {"phase": "render"}, {}
+    parts = {}
+    estimate = predict.estimate_pose
+    annotate = video_writer.create_annotated_movie
+
+    def timed(name, fn):
+        def wrapped(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            parts[name] = time.perf_counter() - t0
+            return out
+        return wrapped
+
+    predict.estimate_pose = timed("estimate_pose_s", estimate)
+    video_writer.create_annotated_movie = timed("draw_encode_s", annotate)
+    mp4s = {}
+    try:
+        with h5_writes() as (h5_note, _), \
+                contextlib.redirect_stdout(sys.stderr):
+            # plot_dgp's float run and its reference under deterministic
+            # cuDNN, so that the trajectories can match (autotuned float32
+            # convolutions differ from call to call; see phase_analysis)
+            with deterministic():
+                ref = estimate(config, final, video, Path(workdir) / "ref",
+                               save_pose=False, device=device)
+            for name, kw, cudnn in (
+                    ("plot_dgp", {}, deterministic),
+                    ("plot_dgp_int8", dict(quantize=True, save_str="_int8"),
+                     contextlib.nullcontext)):
+                out_dir = Path(workdir) / "render" / name
+                with cudnn():
+                    mp4, wall, launches[name] = counted(
+                        video_writer.plot_dgp, video, out_dir, config, final,
+                        device=device, **kw)
+                reader = VideoReader(mp4)
+                n = sum(1 for _ in reader.iter_frames())
+                size = [reader.height, reader.width]
+                reader.close()
+                table = load_pose_from_dlc(
+                    str(out_dir / f"{video.stem}{kw.get('save_str', '')}.csv"))
+                mp4s[name] = {"frames": n, "hw": size, "wall_s": wall,
+                              "frames_per_s": n / wall, **parts,
+                              "mb": mp4.stat().st_size / 1e6,
+                              "cudnn": ("deterministic" if name == "plot_dgp"
+                                        else "autotuned")}
+                if name == "plot_dgp":
+                    mp4s[name]["vs_estimate_pose_px"] = float(max(
+                        np.abs(table[k] - ref[k]).max() for k in ("x", "y")))
+    finally:
+        predict.estimate_pose = estimate
+        video_writer.create_annotated_movie = annotate
+    line.update(mp4s, h5=h5_note)
+
+    drawing = importlib.util.find_spec("matplotlib") is not None
+    with contextlib.redirect_stdout(sys.stderr):
+        if drawing:
+            grids, line["maps_s"], launches["extract_save_all_maps"] = counted(
+                maps.extract_save_all_maps, config,
+                snapshot="snapshot-step2-final--0", device=device)
+            line["maps_written"] = len(grids)
+            results, _, launches["evaluate_network_plotting"] = counted(
+                metrics.evaluate_network, config, plotting=True,
+                snapshots="snapshot-step2-final--0", device=device)
+            line["labeled_images"] = len(list(
+                (root / "evaluation-results" / "iteration-0"
+                 / "LabeledImages_snapshot-step2-final--0").glob("*.png")))
+            line["targets_written"] = len(maps.display_dataset(config))
+        else:
+            grids, line["maps_s"], launches["labeled_scoremaps"] = counted(
+                lambda: list(maps.labeled_scoremaps(
+                    config, snapshot="snapshot-step2-final--0",
+                    device=device)))
+            line["maps_finite"] = all(np.isfinite(s).all()
+                                      and np.isfinite(m).all()
+                                      for _, _, s, m in grids)
+            for what, fn in (("evaluate_network(plotting=True)", lambda:
+                              metrics.evaluate_network(
+                                  config, plotting=True, device=device)),
+                             ("display_dataset", lambda:
+                              maps.display_dataset(config)),
+                             ("extract_save_all_maps (the drawing)", lambda:
+                              maps.extract_save_all_maps(config,
+                                                         device=device))):
+                try:
+                    fn()
+                    not_run[what] = "ran"
+                except ImportError as e:
+                    not_run[what] = f"ImportError: {e}"
+        line["maps"] = len(grids)
+
+    call, _ = serving.load_infer_artifact(served)
+    x = torch.from_numpy(serve_batches(1, SERVE_BATCH, SEED + 7)[0]).to(
+        device)
+    call(x)
+    trace_dir = Path(workdir) / "trace"
+    with contextlib.redirect_stdout(sys.stderr):
+        with profiling.trace(trace_dir):
+            call(x)
+    traces = list(trace_dir.glob("trace-*.json"))
+    events = (json.loads(traces[0].read_text())["traceEvents"]
+              if traces else [])
+    line["trace"] = {"files": len(traces),
+                     "mb": traces[0].stat().st_size / 1e6 if traces else 0,
+                     "decode_kernel_events": sum(
+                         "softargmax_likelihood_kernel" in e.get("name", "")
+                         for e in events),
+                     "decode_op_events": sum(
+                         "dgp_torch::softargmax_likelihood" in e.get(
+                             "name", "") for e in events)}
+    line["device_memory_stats"] = profiling.device_memory_stats()
+    line.update(launches=launches, seconds=time.perf_counter() - t_phase)
+    emit(line)
+    if not_run:
+        emit({"phase": "render_not_run",
+              "why": "matplotlib absent on this host: the figures raise "
+                     "ImportError, as the JAX package's do; the maps' "
+                     "inference (decode kernel) ran without the drawing",
+              "calls": not_run})
+    gemm = ("mm_tiled", "conv_int8")
+    frames = FIT_FRAMES
+    failed = [name for name, ok in {
+        "plot_dgp writes every frame": all(
+            m["frames"] == frames for m in mp4s.values()),
+        "plot_dgp trajectories are estimate_pose's": (
+            mp4s["plot_dgp"]["vs_estimate_pose_px"] <= RENDER_EQUAL_PX),
+        "decode on every inference path": all(
+            c["softargmax_likelihood"] > 0 for c in launches.values()),
+        "GEMM kernels on plot_dgp(quantize=True)": all(
+            launches["plot_dgp_int8"][k] > 0 for k in gemm),
+        "no GEMM on the float paths": all(
+            c[k] == 0 for p, c in launches.items() if p != "plot_dgp_int8"
+            for k in gemm),
+        "maps of every labeled frame": line["maps"] == FIT_LABELED,
+        "figures absent only for want of matplotlib": drawing or all(
+            v.startswith("ImportError") for v in not_run.values()),
+        "trace written with the decode kernel": (
+            line["trace"]["files"] == 1
+            and line["trace"]["decode_kernel_events"] > 0),
+        "device memory stats": (
+            line["device_memory_stats"][0]["device"] == "cuda:0"),
+    }.items() if not ok]
+    if failed:
+        raise AssertionError(f"render checks failed: {failed}")
+    return launches
+
+
 def kernel_class(name: str) -> str:
     """Sort a device kernel's name into decode, int8_gemm (the port's int8
     GEMM, matched before the library GEMMs), convolution, h2d (copies from
@@ -3073,6 +3653,8 @@ def main() -> int:
                                sys.argv[4])
     if sys.argv[1:2] == ["--nccl-probe"]:
         return nccl_probe(int(sys.argv[2]), int(sys.argv[3]))
+    if sys.argv[1:2] == ["--serve-worker"]:
+        return serve_worker(*sys.argv[2:5])
     if not (ROOT / "deepgraphpose_tpu_torch").is_dir():
         print("chip_smoke.py: run it from a checkout of the repository "
               "(deepgraphpose_tpu_torch/ not found)", file=sys.stderr)
@@ -3139,6 +3721,9 @@ def main() -> int:
         analysis = phase_analysis(device, Path(workdir) / "fit_project",
                                   pose, final)
         parallel = phase_parallel(device, workdir, final)
+        serving, served = phase_serving(device, workdir, final)
+        headonly = phase_headonly(device, workdir, fit_lines)
+        render = phase_render(device, workdir, final, served)
         phase_profile(cfg, device, model, qmodel, train_step2, fit_steps,
                       (mobile["cfg"], mobile["model"]))
 
@@ -3147,6 +3732,9 @@ def main() -> int:
     by_path.update({line["run"]: line["launches"] for line in fit_lines})
     by_path.update(analysis)
     by_path.update(parallel)
+    by_path.update(serving)
+    by_path.update(headonly)
+    by_path.update(render)
     decode_by_path = {"full_frame": full_launches,
                       "tracked_crop": crop_launches,
                       "mobilenet_full_frame": mobile["full_launches"],

@@ -16,7 +16,11 @@ bfloat16 mixed precision (float32 weights). After training, what users
 run: ``analyze_videos`` (DLC-scorer CSV/H5, the DLC top-k decode for
 ``num_outputs > 1``), ``evaluate_network`` / ``evaluate_dgp`` (px error
 against the labels), ``filterpredictions``, ``extract_outlier_frames`` and
-``analyzeskeleton``. Training spreads over the ranks of a
+``analyzeskeleton``; the labeled video (``plot_dgp``), trajectory
+plots, scoremap grids and labeled evaluation images; head-only training
+(``fit_dlc_heads``); and the serving artifact (``infer/serving.py``: a
+``torch.export`` program whose graph calls both kernels as custom ops).
+Training spreads over the ranks of a
 ``torch.distributed`` process group (``data_parallel``) and batches
 several windows an update (``windows_per_device``), and
 ``parallel.streaming.estimate_pose_multichip`` splits a video's time axis
@@ -39,6 +43,9 @@ _LAZY_API = {
     "fit_dgp_labeledonly": ("deepgraphpose_tpu_torch.train.fit",
                             "fit_dgp_labeledonly"),
     "fit_dgp": ("deepgraphpose_tpu_torch.train.fit", "fit_dgp"),
+    "fit_dlc_heads": ("deepgraphpose_tpu_torch.train.headonly",
+                      "fit_dlc_heads"),
+    "plot_dgp": ("deepgraphpose_tpu_torch.infer.video_writer", "plot_dgp"),
     "evaluate_dgp": ("deepgraphpose_tpu_torch.evaluation.metrics",
                      "evaluate_dgp"),
     "analyze_videos": ("deepgraphpose_tpu_torch.infer.analyze",
@@ -53,6 +60,14 @@ _LAZY_API = {
                                "extract_outlier_frames"),
     "analyzeskeleton": ("deepgraphpose_tpu_torch.evaluation.skeleton",
                         "analyzeskeleton"),
+    "plot_trajectories": ("deepgraphpose_tpu_torch.infer.plotting",
+                          "plot_trajectories"),
+    "check_labels": ("deepgraphpose_tpu_torch.infer.plotting",
+                     "check_labels"),
+    "extract_save_all_maps": ("deepgraphpose_tpu_torch.evaluation.maps",
+                              "extract_save_all_maps"),
+    "display_dataset": ("deepgraphpose_tpu_torch.evaluation.maps",
+                        "display_dataset"),
 }
 
 

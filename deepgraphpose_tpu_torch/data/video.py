@@ -6,7 +6,10 @@ The port's own copy of ``deepgraphpose_tpu/data/video.py:30-186``:
 * :class:`FrameCache`: the training frames decoded once into an in-memory
   JPEG cache, so the train loop never seeks the container again;
 * :func:`motion_energy`: mean |frame_t - frame_{t-1}| per frame in one
-  streaming pass (ref: dataset.py:29-43).
+  streaming pass (ref: dataset.py:29-43);
+* :func:`write_video` (RGB frames to a file through ``cv2.VideoWriter``)
+  and the transcodes :func:`shorten_video`, :func:`downsample_video`,
+  :func:`crop_video` (``deepgraphpose_tpu/data/video.py:187-252``).
 
 ``cv2`` is imported where a reader opens or a frame is coded, so the module
 imports on a host without OpenCV. The cache decodes with OpenCV only; the
@@ -170,3 +173,73 @@ def motion_energy(path: str | Path, resize_to: int | None = 256) -> np.ndarray:
         last = i
     reader.close()
     return me[:last + 1]
+
+
+def _transcode(src: str | Path, dst: str | Path, frame_fn,
+               start_s: float = 0.0, stop_s: float | None = None) -> Path:
+    reader = VideoReader(src)
+    try:
+        start = int(start_s * reader.fps)
+        stop = int(stop_s * reader.fps) if stop_s is not None else None
+        first = frame_fn(reader.read_frame(start))
+        write_video(dst,
+                    (frame_fn(f) for _, f in reader.iter_frames(start, stop)),
+                    reader.fps, (first.shape[1], first.shape[0]))
+    finally:
+        reader.close()
+    return Path(dst)
+
+
+def shorten_video(vname: str | Path, start_s: float = 1.0,
+                  stop_s: float = 60.0, outsuffix: str = "short",
+                  outpath: str | Path | None = None) -> Path:
+    """Clip [start_s, stop_s) to a new file
+    (ref: auxfun_videos.py:27-70 ShortenVideo, ffmpeg there)."""
+    vname = Path(vname)
+    out = Path(outpath or vname.parent) / f"{vname.stem}{outsuffix}.mp4"
+    return _transcode(vname, out, lambda f: f, start_s, stop_s)
+
+
+def downsample_video(vname: str | Path, width: int = -1, height: int = 200,
+                     outsuffix: str = "downsampled",
+                     outpath: str | Path | None = None) -> Path:
+    """Spatially downsample, preserving aspect when one dim is -1
+    (ref: auxfun_videos.py:72-115 DownSampleVideo)."""
+    import cv2
+
+    vname = Path(vname)
+    out = Path(outpath or vname.parent) / f"{vname.stem}{outsuffix}.mp4"
+
+    def fn(frame):
+        h, w = frame.shape[:2]
+        tw = width if width > 0 else int(round(w * height / h))
+        th = height if height > 0 else int(round(h * width / w))
+        return cv2.resize(frame, (tw, th))
+
+    return _transcode(vname, out, fn)
+
+
+def crop_video(vname: str | Path, x0: int, x1: int, y0: int, y1: int,
+               outsuffix: str = "cropped",
+               outpath: str | Path | None = None) -> Path:
+    """Spatial crop to [y0:y1, x0:x1] (ref: auxfun_videos CropVideo role)."""
+    vname = Path(vname)
+    out = Path(outpath or vname.parent) / f"{vname.stem}{outsuffix}.mp4"
+    return _transcode(vname, out, lambda f: f[y0:y1, x0:x1])
+
+
+def write_video(path: str | Path, frames_iter, fps: float,
+                frame_size_wh: tuple[int, int], fourcc: str = "mp4v") -> int:
+    """Write RGB frames to a video file; returns the frame count."""
+    import cv2
+
+    wr = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*fourcc), fps,
+                         frame_size_wh)
+    n = 0
+    try:
+        for frame in frames_iter:
+            wr.write(cv2.cvtColor(frame, cv2.COLOR_RGB2BGR))
+            n += 1
+    finally:
+        wr.release()
+    return n

@@ -2,10 +2,9 @@
 
 The port's twin of ``demo/run_dgp_demo.py`` (ref: demo/run_dgp_demo.py:
 114-310): steps 0 (DLC warm-start) -> 1 (DGP labeled-only) -> 2 (full DGP)
--> 3 (predict every video in videos_dgp/, with the DLC CSV/H5 export),
-with ``--test`` truncating iterations (2/2/5) and videos (10 s). The
-labeled video of step 3 (``plot_dgp``) waits for ROADMAP item 19; the demo
-says that it skips it.
+-> 3 (predict every video in videos_dgp/ with ``plot_dgp``: the DLC
+CSV/H5 export and the labeled MP4 in videos_pred/), with ``--test``
+truncating iterations (2/2/5) and videos (10 s).
 
 Usage (on the card; ``--device cpu`` runs on the CPU):
   python -m deepgraphpose_tpu_torch.demo --dlcpath <project> [--shuffle 1]
@@ -39,7 +38,7 @@ def main(argv=None) -> int:
 
     from deepgraphpose_tpu_torch.core import paths as paths_lib
     from deepgraphpose_tpu_torch.data.video import VideoReader
-    from deepgraphpose_tpu_torch.infer.predict import estimate_pose
+    from deepgraphpose_tpu_torch.infer.video_writer import plot_dgp
     from deepgraphpose_tpu_torch.train.fit import (fit_dgp,
                                                    fit_dgp_labeledonly,
                                                    fit_dlc, resolve_project)
@@ -88,11 +87,9 @@ def main(argv=None) -> int:
             max_frames = int(min(reader.n_frames, reader.fps * 10))
             reader.close()
         print(f"predicting {video}", flush=True)
-        estimate_pose(dlcpath / "config.yaml", snapshot_path, video, out_dir,
-                      shuffle=args.shuffle, max_frames=max_frames,
-                      device=args.device)
-        print(f"skipping the labeled video of {Path(video).name}: plot_dgp "
-              "waits for ROADMAP item 19", flush=True)
+        plot_dgp(video, out_dir, dlcpath / "config.yaml", snapshot_path,
+                 shuffle=args.shuffle, max_frames=max_frames,
+                 device=args.device)
     print("\ndemo complete", flush=True)
     return 0
 

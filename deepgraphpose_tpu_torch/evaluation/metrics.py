@@ -261,9 +261,12 @@ def evaluate_network(config: str | Path, shuffle: int = 1,
     subset (ref: evaluate.py:265). ``rescale=True`` evaluates at the
     pose_cfg ``global_scale`` resolution through ``evaluate_dgp(scale=)``
     (ref: evaluate.py:315-320); the errors stay in ORIGINAL label pixels,
-    as the JAX package reports them. ``plotting=True`` raises
-    ``NotImplementedError``: the labeled evaluation images wait for
-    ROADMAP item 19.
+    as the JAX package reports them. With ``plotting=True`` it also
+    writes per-frame labeled evaluation images (ground truth '+',
+    predictions '.'/'x' by pcutoff, train/test file prefixes) into
+    ``LabeledImages_<snapshot>/`` next to the CSV (ref:
+    evaluate.py:382-392); that needs matplotlib, whose absence raises
+    ``ImportError`` before any evaluation.
     """
     import csv
 
@@ -272,9 +275,10 @@ def evaluate_network(config: str | Path, shuffle: int = 1,
     from deepgraphpose_tpu_torch.core.paths import resolve_project
 
     if plotting:
-        raise NotImplementedError(
-            "evaluate_network(plotting=True) draws matplotlib figures, which "
-            "the port has not taken yet (ROADMAP item 19, rendering)")
+        import matplotlib  # noqa: F401  (raises here where it is absent)
+
+        from deepgraphpose_tpu_torch.infer.plotting import \
+            plot_evaluation_frames
     device = resolve_device(device)
     config = Path(config)
     dlcpath = config.parent
@@ -318,6 +322,16 @@ def evaluate_network(config: str | Path, shuffle: int = 1,
                                device=device)
             res["snapshot"] = snap.stem
             results.append(res)
+            if plotting:
+                folder = out_dir / f"LabeledImages_{snap.stem}"
+                written = plot_evaluation_frames(
+                    res["image_paths"], res["true_xy"], res["pred_xy"],
+                    res["likelihood"], res["is_train"], folder,
+                    pcutoff=pcutoff if pcutoff is not None else proj.pcutoff,
+                    dotsize=proj.dotsize, alpha=proj.alphavalue,
+                    colormap=proj.colormap, bodyparts=proj.bodyparts)
+                print(f"wrote {len(written)} labeled evaluation images "
+                      f"to {folder}")
             wr.writerow([snap.stem, shuffle,
                          proj.TrainingFraction[trainingsetindex],
                          f"{res['train_error']:.3f}",

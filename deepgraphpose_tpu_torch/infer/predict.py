@@ -43,17 +43,23 @@ from deepgraphpose_tpu_torch.ops.kernels.softargmax_kernel import \
     softargmax_likelihood
 
 
+def inference_cudnn():
+    """cuDNN as inference runs it: it autotunes each shape and never uses
+    TF32, so a float32 model computes in full float32 as the JAX reference
+    does. Where the caller asked cuDNN to be deterministic it does not
+    autotune either: its heuristics pick the same algorithms in every
+    process."""
+    cudnn = torch.backends.cudnn
+    return cudnn.flags(enabled=True, benchmark=not cudnn.deterministic,
+                       deterministic=cudnn.deterministic, allow_tf32=False)
+
+
 @torch.inference_mode()
 def forward_heads(model: PoseModel, images_u8: torch.Tensor,
                   heads=("part_pred",)) -> dict:
-    """The model's float32 ``heads`` of uint8 images (B, H, W, 3). cuDNN
-    autotunes each shape and never uses TF32, so a float32 model computes
-    in full float32 as the JAX reference does. Where the caller asked
-    cuDNN to be deterministic it does not autotune either: its heuristics
-    pick the same algorithms in every process."""
-    cudnn = torch.backends.cudnn
-    with cudnn.flags(enabled=True, benchmark=not cudnn.deterministic,
-                     deterministic=cudnn.deterministic, allow_tf32=False):
+    """The model's float32 ``heads`` of uint8 images (B, H, W, 3), under
+    :func:`inference_cudnn`."""
+    with inference_cudnn():
         return model(images_u8, heads=heads)
 
 

@@ -73,12 +73,15 @@ class PoseModel(nn.Module):
 
         ``heads`` names the outputs to compute (default: all configured).
         Inference asks for ``("part_pred",)`` only, so the locref head is
-        never run there. ``train=True`` runs batch-norm on batch statistics
+        never run there. ``"features"`` among them adds the backbone's
+        output, NHWC in the compute dtype: the tap of head-only training
+        (``train/headonly.py``; the JAX package's ``return_features``).
+        ``train=True`` runs batch-norm on batch statistics
         and updates its moving stats (``FrozenBatchNorm``); the default is
         inference.
         """
         want = self.head_keys if heads is None else list(heads)
-        unknown = set(want) - set(self.head_keys)
+        unknown = set(want) - set(self.head_keys) - {"features"}
         if unknown:
             raise ValueError(f"unknown heads {sorted(unknown)}; "
                              f"configured: {self.head_keys}")
@@ -86,6 +89,8 @@ class PoseModel(nn.Module):
         x = x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
         features, end_points = self.backbone(x, train)
         out = {}
+        if "features" in want:
+            out["features"] = features.permute(0, 2, 3, 1)
         if "part_pred" in want:
             out["part_pred"] = _nhwc_f32(self.part_pred(features))
         if "locref" in want:

@@ -678,10 +678,11 @@ def quantize_model(cfg: PoseConfig, model, calib_images,
 
 
 def calib_frames_from_video(video_file, n: int = 8, new_size=None,
-                            crop=None) -> np.ndarray:
+                            crop=None, resize_to=None) -> np.ndarray:
     """First-``n``-frames calibration stack, preprocessed as the entry
     points preprocess their batches: resize to ``new_size``, then ``crop``
-    (x0, y0, x1, y1)."""
+    (x0, y0, x1, y1). ``resize_to`` (h, w) then resizes every frame that
+    is not that size (a serving export at a size other than the video's)."""
     import cv2
 
     from deepgraphpose_tpu_torch.data.video import VideoReader
@@ -694,6 +695,8 @@ def calib_frames_from_video(video_file, n: int = 8, new_size=None,
         if crop is not None:
             x0, y0, x1, y1 = crop
             frame = frame[y0:y1, x0:x1]
+        if resize_to is not None and frame.shape[:2] != tuple(resize_to):
+            frame = cv2.resize(frame, (resize_to[1], resize_to[0]))
         frames.append(frame)
         if len(frames) >= n:
             break

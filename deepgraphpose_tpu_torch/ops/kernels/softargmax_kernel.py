@@ -5,8 +5,11 @@
 replaces the Pallas kernel of ``deepgraphpose_tpu/ops/pallas/
 softargmax_kernel.py`` and the likelihood read of ``infer/predict.py``.
 
-A tensor on the CPU goes to the plain version in ``ops/softargmax.py``; a
-CUDA tensor launches the kernel or raises. ``launches`` counts the kernel
+The decode is the custom op ``dgp_torch::softargmax_likelihood`` (``OP``),
+so that a ``torch.export`` program holds the kernel as one node: its CPU
+implementation is the plain version in ``ops/softargmax.py``, its CUDA
+implementation launches the kernel or raises, and its fake implementation
+gives the output shapes and builds nothing. ``launches`` counts the kernel
 launches, so a run can show that its main path went through the kernel.
 """
 
@@ -172,6 +175,7 @@ def _sms(dev: torch.device) -> int:
 def _launch(scoremaps: torch.Tensor, gamma: float, gauss_len: float,
             truncate: float, layout: Layout | None = None):
     global launches
+    _check(scoremaps)
     b, h, w, c = scoremaps.shape
     dev = scoremaps.device
     mu = torch.empty((b, c, 2), dtype=torch.float32, device=dev)
@@ -193,19 +197,44 @@ def _launch(scoremaps: torch.Tensor, gamma: float, gauss_len: float,
     return mu, lik
 
 
+@torch.library.custom_op("dgp_torch::softargmax_likelihood", mutates_args=(),
+                         device_types="cpu")
+def _op(scoremaps: torch.Tensor, gamma: float, gauss_len: float,
+        truncate: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """(B, H, W, C) float32 logits -> (mu (B, C, 2), lik (B, C)): the plain
+    version on a CPU tensor, the kernel on a CUDA one."""
+    _check(scoremaps)
+    return plain.softargmax_likelihood(scoremaps, gamma, gauss_len, truncate)
+
+
+@_op.register_kernel("cuda")
+def _op_cuda(scoremaps, gamma, gauss_len, truncate):
+    return _launch(scoremaps, gamma, gauss_len, truncate)
+
+
+@_op.register_fake
+def _op_fake(scoremaps, gamma, gauss_len, truncate):
+    b, _, _, c = scoremaps.shape
+    return scoremaps.new_empty((b, c, 2)), scoremaps.new_empty((b, c))
+
+
+OP = torch.ops.dgp_torch.softargmax_likelihood
+
+
 def softargmax_likelihood(scoremaps: torch.Tensor, gamma: float,
                           gauss_len: float, truncate: float = 1.0,
                           layout: Layout | None = None):
-    """Forward-only decode: (mu (B, C, 2), lik (B, C)) float32.
+    """Forward-only decode: (mu (B, C, 2), lik (B, C)) float32, through
+    ``OP``.
 
-    ``layout`` overrides :func:`launch_shape`, so that layouts can be timed
+    ``layout`` overrides :func:`launch_shape` on the card (the kernel
+    launched directly, not through the op), so that layouts can be timed
     against each other.
     """
     _check(scoremaps)
-    if scoremaps.device.type == "cpu":
-        return plain.softargmax_likelihood(scoremaps, gamma, gauss_len,
-                                           truncate)
-    return _launch(scoremaps, gamma, gauss_len, truncate, layout)
+    if layout is not None and scoremaps.device.type == "cuda":
+        return _launch(scoremaps, gamma, gauss_len, truncate, layout)
+    return OP(scoremaps, float(gamma), float(gauss_len), float(truncate))
 
 
 class _SoftargmaxCuda(torch.autograd.Function):
@@ -216,7 +245,7 @@ class _SoftargmaxCuda(torch.autograd.Function):
     def forward(ctx, scoremaps, gamma, gauss_len, truncate):
         ctx.save_for_backward(scoremaps)
         ctx.args = (gamma, gauss_len, truncate)
-        mu, _ = _launch(scoremaps, gamma, gauss_len, truncate)
+        mu, _ = OP(scoremaps, float(gamma), float(gauss_len), float(truncate))
         return mu
 
     @staticmethod

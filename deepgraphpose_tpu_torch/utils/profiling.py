@@ -1,17 +1,63 @@
-"""Per-step timing for training loops.
+"""Tracing, per-step timing and device memory.
 
-The port's own copy of :class:`StepTimer` from
-``deepgraphpose_tpu/utils/profiling.py``: rolling step timing with
-JSON-lines output that never forces a device sync (callers pass scalars
-they already fetched). The device-time breakdown by kernel class is the
-profile phase of ``chip_smoke.py``.
+The port's own copy of ``deepgraphpose_tpu/utils/profiling.py``:
+
+* :func:`trace`: a context manager around ``torch.profiler`` that writes a
+  Chrome trace (host ops and, on a card, its kernels) under ``logdir``;
+* :class:`StepTimer`: rolling step timing with JSON-lines output that
+  never forces a device sync (callers pass scalars they already fetched);
+* :func:`device_memory_stats`: live, peak and total bytes of each card.
+
+The device-time breakdown by kernel class is the profile phase of
+``chip_smoke.py``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import time
+import warnings
 from pathlib import Path
+
+
+@contextlib.contextmanager
+def trace(logdir: str | Path):
+    """Profile the enclosed block: ``with trace('/tmp/tb'): step(...)``.
+
+    Writes ``logdir/trace-<pid>-<ms>.json`` (load it in Perfetto or
+    ``chrome://tracing``), with the card's kernels where CUDA is available.
+    If the profiler cannot start (another profile is active: PyTorch would
+    start a second session that ends the first), it warns and runs the
+    block unprofiled, as the JAX package's does.
+    """
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    logdir = Path(logdir)
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    prof = None
+    if torch._C._autograd._profiler_enabled():
+        warnings.warn("[profiling] could not start trace: a profiler is "
+                      "already active")
+    else:
+        prof = profile(activities=activities)
+        prof.__enter__()
+    try:
+        yield
+    finally:
+        if prof is not None:
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+            prof.__exit__(None, None, None)
+            logdir.mkdir(parents=True, exist_ok=True)
+            path = logdir / (f"trace-{os.getpid()}-"
+                             f"{int(time.time() * 1000)}.json")
+            prof.export_chrome_trace(str(path))
+            print(f"[profiling] trace written to {path}")
 
 
 class StepTimer:
@@ -100,3 +146,24 @@ class StepTimer:
 
     def __exit__(self, *exc):
         self.close()
+
+
+def device_memory_stats() -> list[dict]:
+    """Memory of each card (bytes): in use, peak in use (since the last
+    ``torch.cuda.reset_peak_memory_stats``) and the card's total, as
+    PyTorch's caching allocator counts them. Without a card, one entry for
+    the CPU with no figures (PyTorch keeps none for it)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        return [{"device": "cpu"}]
+    out = []
+    for i in range(torch.cuda.device_count()):
+        raw = torch.cuda.memory_stats(i)
+        out.append({
+            "device": f"cuda:{i}",
+            "bytes_in_use": raw.get("allocated_bytes.all.current", 0),
+            "peak_bytes_in_use": raw.get("allocated_bytes.all.peak", 0),
+            "bytes_limit": torch.cuda.get_device_properties(i).total_memory,
+        })
+    return out

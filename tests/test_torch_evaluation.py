@@ -40,7 +40,7 @@ from deepgraphpose_tpu.infer import export as jax_export
 from deepgraphpose_tpu_torch.evaluation import (filtering, metrics, outliers,
                                                 skeleton)
 from deepgraphpose_tpu_torch.infer import export
-from test_torch_analyze import project_with_snapshot
+from test_torch_analyze import SNAPSHOT, project_with_snapshot
 
 XY_TOL, LIK_TOL = 1e-3, 1e-4
 EXACT = 1e-12
@@ -271,11 +271,23 @@ def test_evaluate_network_passes_its_options(project, monkeypatch):
         "snapshot-a.ckpt", "snapshot-a.ckpt", "snapshot-b.ckpt"]
 
 
-def test_evaluate_network_plotting_waits_for_rendering(project):
+def test_evaluate_network_plotting_waits_for_rendering(project, tmp_path):
+    """plotting=True, which waited for the rendering slice, writes the
+    labeled evaluation images: one a frame, named as the JAX package
+    names them (Training- / Test- by the split)."""
     root, _ = project
-    with pytest.raises(NotImplementedError, match="ROADMAP item 19"):
-        metrics.evaluate_network(root / "config.yaml", plotting=True,
-                                 device="cpu")
+    work = tmp_path / "p"
+    shutil.copytree(root, work)
+    results = metrics.evaluate_network(work / "config.yaml", plotting=True,
+                                       snapshots=SNAPSHOT, device="cpu")
+    folder = (work / "evaluation-results" / "iteration-0"
+              / f"LabeledImages_{SNAPSHOT}")
+    names = sorted(p.name for p in folder.glob("*.png"))
+    want = sorted(f"{'Training' if t else 'Test'}-{Path(p).parts[-2]}-"
+                  f"{Path(p).name}" for p, t in zip(
+                      results[0]["image_paths"], results[0]["is_train"]))
+    assert names == want and len(names) == 6
+    assert all((folder / n).stat().st_size > 1000 for n in names)
 
 
 def test_distances_bodyparts_and_csv_equal_jax(project, tmp_path, rng):

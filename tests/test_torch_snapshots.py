@@ -46,6 +46,7 @@ from deepgraphpose_tpu_torch.core import checkpoint as ckpt
 from deepgraphpose_tpu_torch.core import paths
 from deepgraphpose_tpu_torch.core.config import PoseConfig
 from deepgraphpose_tpu_torch.data import project
+from deepgraphpose_tpu_torch.data.video import VideoReader
 from deepgraphpose_tpu_torch.models import pretrained, tf_import
 from deepgraphpose_tpu_torch.models import resnet as torch_resnet
 from deepgraphpose_tpu_torch.models.pose_model import PoseModel
@@ -413,7 +414,7 @@ def test_pretrained_lookup_is_local(work, monkeypatch, capsys):
 
 
 def test_demo_test_mode_ends_with_three_finals_and_a_pose_csv(tiny_resnet,
-                                                              work, capsys):
+                                                              work):
     from deepgraphpose_tpu_torch import demo
 
     proj = tiny_project(work / "proj")
@@ -427,4 +428,7 @@ def test_demo_test_mode_ends_with_three_finals_and_a_pose_csv(tiny_resnet,
     assert rows[0].startswith("scorer,") and len(rows) == 3 + 40
     values = np.array([r.split(",")[1:] for r in rows[3:]], np.float64)
     assert np.isfinite(values).all()
-    assert "plot_dgp waits for ROADMAP item 19" in capsys.readouterr().out
+    # step 3 is plot_dgp: the labeled video beside the CSV
+    reader = VideoReader(proj / "videos_pred" / "synthvid_labeled.mp4")
+    assert reader.n_frames == 40
+    reader.close()
