@@ -188,6 +188,28 @@ last line is then never printed:
     reported on a ``render_not_run`` line), ``utils/profiling.trace``
     around one served batch (the trace holds the decode kernel), and
     ``device_memory_stats``;
+13g. workflow: the DLC project workflow through the port's CLI
+    (``python -m deepgraphpose_tpu_torch.cli``, called in this process as
+    ``cli.main(argv)``, one call a command, each counted from 0 on a line
+    of its own with its wall seconds) on the fit phase's 747x832 video
+    with ResNet-50: create-project, extract-frames (uniform), the labels
+    written from the video's ground truth, check-labels,
+    create-training-dataset, train --step 0, 1 and 2 (22 updates each),
+    evaluate and evaluate --int8, analyze-videos (under deterministic
+    cuDNN: its trajectories within 1e-4 px of ``estimate_pose`` from the
+    same step-2 snapshot) and analyze-videos --int8, filter-predictions,
+    extract-outlier-frames, analyze-skeleton, create-labeled-video,
+    export-model (batch 16, float32), create-project-3d, calibrate-cameras
+    on checkerboard views rendered for two seeded camera poses (the
+    relative pose recovered: RMS below 1 px, fresh points triangulated
+    within 0.5), triangulate. The decode launched by every command that
+    runs the model but the DLC step, ``mm_tiled`` and ``conv_int8`` by the
+    int8 ones (their first batch's convs checked as in phase 10), no GEMM
+    kernel elsewhere, every model on the card. Where h5py is absent the
+    pose tables are kept as numpy archives under their .h5 names, and the
+    commands that need matplotlib or h5py themselves (check-labels,
+    analyze-skeleton, triangulate) are reported with their ImportError on
+    a ``workflow_not_run`` line;
 14. profile: where the device time goes, from torch.profiler over 3
     full-frame batches, 3 MobileNetV2 full-frame batches (its depthwise
     convs a class of their own), 3 tracked-crop steps, 3 int8 full-frame
@@ -203,8 +225,8 @@ last line is then never printed:
 Every kernel wrapper counts its launches (a superstep adds each graph
 replay's captured launches); the counts are set to 0 just before each
 main-path run (phases 4, 5, 8, 10, 10b, 12, each fit run, each
-analysis path, each parallel path, a rank's in its own process, and each
-served, head-only and render path) and
+analysis path, each parallel path, a rank's in its own process, each
+served, head-only and render path, and each workflow command) and
 read just after, and every kernel that the path runs
 must show launches > 0. The
 weights are random, from a seeded torch.Generator; nothing is read from
@@ -2140,28 +2162,64 @@ EVAL_CARD_CPU_PX = 1e-2        # evaluate_dgp float32, card against the CPU
 
 
 @contextlib.contextmanager
-def h5_writes():
-    """Where h5py is absent (the card host), the two H5 writers of
-    ``infer/export.py`` become recorders for the block: the package itself
-    raises without h5py, as the JAX package does, and the phase reads the
-    trajectories back from the CSVs either way. Yields the note the phase
-    line prints and the paths the recorders took."""
+def h5_writes(tables: bool = False):
+    """Where h5py is absent (the card host), the H5 writers become
+    recorders for the block: ``infer/export.py``'s two, the CollectedData
+    twin of ``data/project.py`` and the 4-level one of
+    ``project/multi_individual.py``. The package itself raises without
+    h5py, as the JAX package does, and the phases read the trajectories
+    back from the CSVs either way. With ``tables``, a pose table is kept
+    instead as a numpy archive under its ``.h5`` name and
+    ``read_pose_table`` reads it back, so that the commands that read an
+    analysis (filtering, outliers) run on the card. Yields the note the
+    phase line prints and the paths the recorders took."""
     import importlib.util
 
+    import numpy as np
+
+    from deepgraphpose_tpu_torch.data import project as project_io
     from deepgraphpose_tpu_torch.infer import export
+    from deepgraphpose_tpu_torch.project import multi_individual
 
     if importlib.util.find_spec("h5py") is not None:
         yield "written", []
         return
     recorded = []
-    saved = export.write_pose_h5, export.write_multi_pose_h5
-    export.write_pose_h5 = lambda path, *a, **k: recorded.append(str(path))
-    export.write_multi_pose_h5 = (
-        lambda path, *a, **k: recorded.append(str(path)))
+
+    def record(path, *a, **k):
+        recorded.append(str(path))
+
+    def keep_table(path, scorer, joints_names, labels, index=None):
+        recorded.append(str(path))
+        with open(path, "wb") as f:
+            np.savez(f, scorer=scorer, bodyparts=np.array(joints_names),
+                     index=np.array(index if index is not None else []),
+                     **{k: labels[k] for k in ("x", "y", "likelihoods")})
+
+    def read_table(path):
+        with np.load(path) as z:
+            index = [str(i) for i in z["index"]]
+            return (str(z["scorer"]), [str(b) for b in z["bodyparts"]],
+                    {k: z[k] for k in ("x", "y", "likelihoods")},
+                    index or list(range(z["x"].shape[0])))
+
+    saved = (export.write_pose_h5, export.write_multi_pose_h5,
+             export.read_pose_table, project_io.write_collected_data_h5,
+             multi_individual.write_multi_individual_h5)
+    export.write_pose_h5 = keep_table if tables else record
+    export.write_multi_pose_h5 = record
+    if tables:
+        export.read_pose_table = read_table
+    project_io.write_collected_data_h5 = record
+    multi_individual.write_multi_individual_h5 = record
     try:
-        yield "not written: h5py absent on this host", recorded
+        yield ("stand-in: h5py absent on this host; pose tables kept as "
+               "numpy archives under their .h5 names" if tables else
+               "not written: h5py absent on this host"), recorded
     finally:
-        export.write_pose_h5, export.write_multi_pose_h5 = saved
+        (export.write_pose_h5, export.write_multi_pose_h5,
+         export.read_pose_table, project_io.write_collected_data_h5,
+         multi_individual.write_multi_individual_h5) = saved
 
 
 def counted(fn, *args, **kwargs) -> tuple:
@@ -3510,6 +3568,465 @@ def phase_render(device, workdir, final, served: Path) -> dict:
     return launches
 
 
+# the workflow phase: the port's CLI in this process, one call a command
+WORKFLOW_ITERS = 22            # --maxiters of each train step
+WORKFLOW_TRAIN_FRACTION = 0.8  # 8 of the 10 extracted frames train
+CB_ROWS, CB_COLS, CB_SQUARE = 8, 6, 0.5   # calibrate-cameras' defaults
+CB_VIEWS = 12                  # rendered board poses
+CB_SIZE = (640, 480)           # calibration image (w, h)
+CALIB_RMS_PX = 1.0             # tests/test_threed.py's bounds
+CALIB_TRIANGULATED = 0.5
+
+
+def synthetic_track(n_frames: int, hw, nj: int):
+    """(T, nj, 2) x, y of the dots in utils/synthetic.py's video (its
+    formula), the ground truth the workflow labels its frames with."""
+    import numpy as np
+
+    h, w = hw
+    t = np.arange(n_frames)
+    cx = w / 2 + (w / 3) * np.sin(2 * np.pi * t[:, None] / 25
+                                  + np.arange(nj) * 2)
+    cy = h / 2 + (h / 3) * np.cos(2 * np.pi * t[:, None] / 31
+                                  + np.arange(nj))
+    return np.stack([cx, cy], -1)
+
+
+def stereo_cameras():
+    """tests/test_threed.py's two cameras: intrinsics K1, K2 and camera 2's
+    pose (R, T) in camera 1's frame."""
+    import cv2
+    import numpy as np
+
+    K1 = np.array([[800.0, 0, 320], [0, 800, 240], [0, 0, 1]])
+    K2 = np.array([[820.0, 0, 330], [0, 820, 235], [0, 0, 1]])
+    R, _ = cv2.Rodrigues(np.array([0.0, 0.35, 0.0]))
+    T = np.array([[-3.0], [0.1], [0.4]])
+    return K1, K2, R, T
+
+
+def checkerboard_views(img_dir, cbrow: int = CB_ROWS, cbcol: int = CB_COLS,
+                       square: float = CB_SQUARE, views: int = CB_VIEWS,
+                       names=("camera-1", "camera-2")) -> dict:
+    """Render a (cbrow x cbcol inner corners) checkerboard of ``square``
+    units in ``views`` seeded poses through both stereo_cameras into
+    ``img_dir/<camera>-<view>.png`` (a homography of a drawn board, with
+    OpenCV). Returns the truth: {"K1", "K2", "R", "T"}."""
+    import cv2
+    import numpy as np
+
+    K1, K2, R, T = stereo_cameras()
+    px, margin = 40, 1                 # board pixels a square, white rim
+    nx, ny = cbcol + 1 + 2 * margin, cbrow + 1 + 2 * margin
+    board = np.full((ny * px, nx * px), 255, np.uint8)
+    for j in range(cbrow + 1):
+        for i in range(cbcol + 1):
+            if (i + j) % 2 == 0:
+                y0, x0 = (j + margin) * px, (i + margin) * px
+                board[y0:y0 + px, x0:x0 + px] = 0
+    # board pixel -> board plane (units), inner corner (0, 0) at the origin
+    to_plane = np.array([[square / px, 0, -(1 + margin) * square],
+                         [0, square / px, -(1 + margin) * square],
+                         [0, 0, 1.0]])
+    centre = np.array([(cbcol - 1) / 2 * square, (cbrow - 1) / 2 * square,
+                       0.0])
+    img_dir = Path(img_dir)
+    img_dir.mkdir(parents=True, exist_ok=True)
+    for v in range(views):
+        Rb, _ = cv2.Rodrigues(np.array([0.25, -0.2, 0.05]) * (v % 5 - 2))
+        tb = np.array([-0.6 + 0.1 * v, -0.3 + 0.05 * v, 12.0 + 0.2 * v])
+        for name, K, Rc, tc in ((names[0], K1, np.eye(3), np.zeros((3, 1))),
+                                (names[1], K2, R, T)):
+            Rcb = Rc @ Rb
+            tcb = Rc @ (tb - Rb @ centre).reshape(3, 1) + tc
+            H = K @ np.hstack([Rcb[:, :2], tcb]) @ to_plane
+            img = cv2.warpPerspective(board, H, CB_SIZE,
+                                      flags=cv2.INTER_LINEAR,
+                                      borderValue=128)
+            cv2.imwrite(str(img_dir / f"{name}-{v:02d}.png"), img)
+    return {"K1": K1, "K2": K2, "R": R, "T": T}
+
+
+def calibration_errors(system, truth: dict, rng) -> dict:
+    """How well a calibrated CameraSystem recovers the truth of
+    checkerboard_views: its stereo RMS, and fresh points in front of the
+    cameras, projected through the true cameras and triangulated with the
+    recovered projections (tests/test_threed.py's check)."""
+    import numpy as np
+
+    from deepgraphpose_tpu_torch.threed.triangulation import \
+        triangulate_points
+
+    P1 = truth["K1"] @ np.hstack([np.eye(3), np.zeros((3, 1))])
+    P2 = truth["K2"] @ np.hstack([truth["R"], truth["T"]])
+
+    def project(P, X):
+        x = (P @ np.hstack([X, np.ones((len(X), 1))]).T).T
+        return x[:, :2] / x[:, 2:3]
+
+    X = rng.uniform([-1, -1, 8], [1, 1, 12], (20, 3))
+    names = system.camera_names
+    got = triangulate_points(system.P[names[0]], system.P[names[1]],
+                             project(P1, X), project(P2, X))
+    return {"rms_px": float(system.rms),
+            "triangulated_max": float(np.abs(got - X).max()),
+            "R_max": float(np.abs(system.R - truth["R"]).max()),
+            "T_max": float(np.abs(system.T.reshape(3, 1)
+                                  - truth["T"]).max())}
+
+
+@contextlib.contextmanager
+def model_devices():
+    """Record the device of the first parameter of every PoseModel and
+    QuantizedPoseModel forward inside the block: the set of device types
+    the commands ran their models on."""
+    from deepgraphpose_tpu_torch.models.pose_model import PoseModel
+    from deepgraphpose_tpu_torch.models.quant import QuantizedPoseModel
+
+    seen: set = set()
+    saved = {cls: cls.forward for cls in (PoseModel, QuantizedPoseModel)}
+
+    def recording(forward):
+        def wrapped(self, *args, **kwargs):
+            param = next(self.parameters(), None)
+            buf = next(self.buffers(), None)
+            seen.add((param if param is not None else buf).device.type)
+            return forward(self, *args, **kwargs)
+        return wrapped
+
+    for cls, forward in saved.items():
+        cls.forward = recording(forward)
+    try:
+        yield seen
+    finally:
+        for cls, forward in saved.items():
+            cls.forward = forward
+
+
+@contextlib.contextmanager
+def checked_first_int8_batch(path: str, calls: list):
+    """Within the block, each int8 model that ``quantize_model`` makes runs
+    its first forward under ``checked_convs`` (every conv of the first
+    batch held against the plain version on its own input); the checks'
+    own launches, one on the route of each checked conv, are appended to
+    ``calls`` so that the caller takes them out of the command's count."""
+    from deepgraphpose_tpu_torch.models import quant
+
+    make = quant.quantize_model
+
+    def quantize_model(*args, **kwargs):
+        qmodel = make(*args, **kwargs)
+        forward = qmodel.forward
+
+        def first(*a, **k):
+            del qmodel.forward          # later batches run unchecked
+            with checked_convs(qmodel, path, calls):
+                return forward(*a, **k)
+        qmodel.forward = first
+        return qmodel
+
+    quant.quantize_model = quantize_model
+    try:
+        yield
+    finally:
+        quant.quantize_model = make
+
+
+def phase_workflow(device, workdir) -> dict:
+    """The DLC project workflow through the port's CLI
+    (``deepgraphpose_tpu_torch/cli.py``), in this process, one
+    ``cli.main(argv)`` a command, on the fit phase's 747x832 video with
+    ResNet-50 at full width and depth: create-project, extract-frames
+    (uniform), the labels written from the video's ground truth,
+    check-labels, create-training-dataset, train --step 0, 1 and 2
+    (WORKFLOW_ITERS updates each), evaluate and evaluate --int8,
+    analyze-videos and analyze-videos --int8, filter-predictions,
+    extract-outlier-frames, analyze-skeleton, create-labeled-video,
+    export-model (batch 16, float32), create-project-3d, calibrate-cameras
+    on rendered checkerboard views and triangulate. Each command's line
+    holds its wall seconds and every kernel's launches (counts set to 0
+    before it; an int8 command's first-batch conv checks taken out). A
+    command that needs a package this host lacks (matplotlib, h5py) is
+    reported on the ``workflow_not_run`` line with its ImportError.
+    Returns {command: launches}."""
+    import glob
+    import importlib.util
+
+    import numpy as np
+    import torch
+
+    from deepgraphpose_tpu_torch import cli
+    from deepgraphpose_tpu_torch.core.config import ProjectConfig
+    from deepgraphpose_tpu_torch.core.paths import resolve_project
+    from deepgraphpose_tpu_torch.data.project import (
+        Labels, write_collected_data_csv)
+    from deepgraphpose_tpu_torch.infer import analyze
+    from deepgraphpose_tpu_torch.infer.export import load_pose_from_dlc
+    from deepgraphpose_tpu_torch.infer.predict import estimate_pose
+    from deepgraphpose_tpu_torch.threed.calibration import CameraSystem
+
+    t_phase = time.perf_counter()
+    wf = Path(workdir) / "workflow"
+    wf.mkdir()
+    source = Path(workdir) / "fit_project" / "videos_dgp" / "synthvid.avi"
+    dev = str(device)
+    launches, not_run, checks = {}, {}, {}
+    devices = set()
+
+    def command(name, argv, expect_import_error=None):
+        """One CLI command, counted; returns its exit code, or None where
+        it raised the expected ImportError (reported, not run)."""
+        calls = checks.setdefault(name, [])
+        argv = [str(a) for a in argv] + ["--device", dev]
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        try:
+            with checked_first_int8_batch(name, calls), \
+                    model_devices() as seen, \
+                    contextlib.redirect_stdout(sys.stderr):
+                rc = cli.main(argv)
+        except ImportError as e:
+            if expect_import_error is None or \
+                    importlib.util.find_spec(expect_import_error) is not None:
+                raise
+            not_run[name] = f"ImportError: {e}"
+            return None
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = read_launches()
+        for c in calls:                 # the checks' own launches
+            counts[c["route"]] -= 1
+        devices.update(seen)
+        launches[name] = counts
+        line = {"phase": "workflow", "command": name, "argv": argv,
+                "rc": rc, "seconds": seconds, "launches": counts,
+                "model_devices": sorted(seen)}
+        if calls:
+            line["checked"] = check_summary(calls)
+        emit(line)
+        if rc != 0:
+            raise AssertionError(f"workflow: {name} exited {rc}")
+        return rc
+
+    with h5_writes(tables=True) as (h5_note, h5_recorded):
+        command("create-project", ["create-project", "Workflow", "chip",
+                                   source, "--wd", wf])
+        (config,) = [Path(c) for c in glob.glob(
+            str(wf / "Workflow-chip-*" / "config.yaml"))]
+        root = config.parent
+        # the user's edits of config.yaml: bodyparts, skeleton, frames
+        proj = ProjectConfig.from_yaml(config)
+        bodyparts = [f"bp{j}" for j in range(NUM_JOINTS)]
+        proj.bodyparts, proj.skeleton = bodyparts, [["bp0", "bp1"],
+                                                    ["bp0", "bp2"]]
+        proj.numframes2pick = FIT_LABELED
+        proj.TrainingFraction = [WORKFLOW_TRAIN_FRACTION]
+        proj.to_yaml(config)
+        command("extract-frames", ["extract-frames", config, "--mode",
+                                   "automatic", "--algo", "uniform"])
+        vdir = root / "labeled-data" / source.stem
+        pngs = sorted(vdir.glob("img*.png"))
+        picked = [int(p.stem[3:]) for p in pngs]
+        truth = synthetic_track(FIT_FRAMES, HW, NUM_JOINTS)
+        write_collected_data_csv(
+            vdir / "CollectedData_chip.csv",
+            Labels(scorer="chip", bodyparts=bodyparts,
+                   image_paths=[f"labeled-data/{source.stem}/{p.name}"
+                                for p in pngs],
+                   coords_xy=truth[picked]))
+        command("check-labels", ["check-labels", config],
+                expect_import_error="matplotlib")
+        command("create-training-dataset",
+                ["create-training-dataset", config])
+        for step in (0, 1, 2):
+            command(f"train-step{step}",
+                    ["train", config, "--step", step,
+                     "--maxiters", WORKFLOW_ITERS])
+        command("evaluate", ["evaluate", config])
+        command("evaluate-int8", ["evaluate", config, "--int8"])
+        video = root / "videos" / source.name
+        folders = {"float": video.parent, "int8": root / "analysis_int8"}
+        # the float analysis (next to the video, where the commands after
+        # it look) and its reference under deterministic cuDNN: autotuned
+        # float32 convolutions differ from call to call
+        with deterministic():
+            command("analyze-videos", ["analyze-videos", config, video])
+            proj, pose_cfg, train_dir = resolve_project(root)
+            snapshot = analyze._resolve_snapshot(train_dir, proj, None)[0]
+            with contextlib.redirect_stdout(sys.stderr):
+                want = estimate_pose(config, snapshot, video, root / "ref",
+                                     save_pose=False, device=device)
+        command("analyze-videos-int8", ["analyze-videos", config, video,
+                                        "--int8", "--destfolder",
+                                        folders["int8"]])
+        scorer = analyze.get_scorer_name(
+            proj, pose_cfg, 1, snapshot.stem.split("-")[-1])[0]
+        tables = {k: load_pose_from_dlc(
+            str(folder / f"{video.stem}{scorer}.csv"))
+            for k, folder in folders.items()}
+        command("filter-predictions", ["filter-predictions", config, video])
+        command("extract-outlier-frames", ["extract-outlier-frames", config,
+                                           video])
+        command("analyze-skeleton", ["analyze-skeleton", config, video],
+                expect_import_error="h5py")
+        command("create-labeled-video", ["create-labeled-video", config,
+                                         video, "--destfolder",
+                                         root / "labeled_video"])
+        artifact = root / "exported" / "pose.pt2"
+        artifact.parent.mkdir()
+        command("export-model", ["export-model", config, artifact,
+                                 "--batch-size", SERVE_BATCH])
+        served = served_batch(artifact, video, device)
+        launches["export-model served batch"] = served.pop("launches")
+        command("create-project-3d", ["create-project-3d", "Stereo", "chip",
+                                      "--wd", wf])
+        (config3d,) = [Path(c) for c in glob.glob(
+            str(wf / "Stereo-chip-*-3d" / "config.yaml"))]
+        truth3d = checkerboard_views(config3d.parent / "calibration_images")
+        command("calibrate-cameras", ["calibrate-cameras", config3d,
+                                      "--square-size", CB_SQUARE])
+        system = CameraSystem.load(config3d.parent / "camera_matrix"
+                                   / "stereo_params.pickle")
+        calib = calibration_errors(system, truth3d,
+                                   np.random.default_rng(SEED))
+        tri = triangulate_views(config3d, truth3d, command)
+    emit({"phase": "workflow_not_run",
+          "why": "packages absent on this host: the commands raise "
+                 "ImportError, as the JAX package's do",
+          "commands": not_run, "h5": h5_note,
+          "h5_recorded": len(h5_recorded)})
+
+    got = np.stack([tables["float"][k] for k in ("x", "y")], -1)
+    ref = np.stack([want[k] for k in ("x", "y")], -1)
+    train_files = sorted(p.name for p in Path(train_dir).glob("*.ckpt"))
+    finals = [f"snapshot-step{s}-final--0.ckpt" for s in (0, 1, 2)]
+    model_commands = ("train-step1", "train-step2", "evaluate",
+                      "evaluate-int8", "analyze-videos",
+                      "analyze-videos-int8", "create-labeled-video",
+                      "export-model served batch")
+    int8_commands = ("evaluate-int8", "analyze-videos-int8")
+    gemm = ("mm_tiled", "conv_int8")
+    line = {"phase": "workflow_checks", "project": root.name,
+            "frames_labeled": picked, "snapshots": train_files,
+            "snapshot_analyzed": snapshot.name, "scorer": scorer,
+            "analyze_vs_estimate_pose_px": float(np.abs(got - ref).max()),
+            "int8_vs_float_px": float(np.nanmax(np.abs(np.stack(
+                [tables["int8"][k] for k in ("x", "y")], -1) - got))),
+            "artifact_mb": artifact.stat().st_size / 1e6,
+            "served": served,
+            "calibration": calib, "triangulate": tri,
+            "model_devices": sorted(devices),
+            "checked": {k: check_summary(v) for k, v in checks.items()
+                        if v},
+            "seconds": time.perf_counter() - t_phase}
+    emit(line)
+    failed = [name for name, ok in {
+        "the three steps' final snapshots": all(f in train_files
+                                                for f in finals),
+        "analyze-videos read the step-2 final": (
+            snapshot.name == finals[2]),
+        "analyze-videos equals estimate_pose": (
+            got.shape == ref.shape == (FIT_FRAMES, NUM_JOINTS, 2)
+            and line["analyze_vs_estimate_pose_px"] <= ANALYSIS_EQUAL_PX),
+        "the exported artifact serves": served["finite"],
+        "int8 trajectories finite": bool(np.isfinite(np.stack(
+            [tables["int8"][k] for k in ("x", "y")])).all()),
+        "decode on every model command": all(
+            launches[c]["softargmax_likelihood"] > 0
+            for c in model_commands),
+        "no kernel in the DLC step": all(
+            v == 0 for v in launches["train-step0"].values()),
+        "GEMM kernels on the int8 commands": all(
+            launches[c][k] > 0 for c in int8_commands for k in gemm),
+        "first int8 batch checked on both routes": all(
+            {c["route"] for c in checks[cmd]} == set(gemm)
+            for cmd in int8_commands),
+        "no GEMM on the float commands": all(
+            launches[c][k] == 0 for c in launches if c not in int8_commands
+            for k in gemm),
+        "models on the card only": devices == {"cuda"},
+        "calibration recovers the stereo pose": (
+            calib["rms_px"] < CALIB_RMS_PX
+            and calib["triangulated_max"] < CALIB_TRIANGULATED),
+        "triangulated where h5py imports": (
+            "triangulate" in not_run
+            or tri["max_err"] < CALIB_TRIANGULATED),
+        "absent only for want of a package": set(not_run) <= {
+            "check-labels", "analyze-skeleton", "triangulate"},
+    }.items() if not ok]
+    if failed:
+        raise AssertionError(f"workflow checks failed: {failed}")
+    return launches
+
+
+def served_batch(artifact, video, device) -> dict:
+    """One batch of the video's first frames through the artifact that
+    export-model wrote, loaded as a server loads it, counted: the
+    program's graph calls the decode op (``dgp_torch::
+    softargmax_likelihood``); the export itself traces it without a
+    launch."""
+    import numpy as np
+    import torch
+
+    from deepgraphpose_tpu_torch.data.video import VideoReader
+    from deepgraphpose_tpu_torch.infer import serving
+
+    call, meta = serving.load_infer_artifact(artifact)
+    reader = VideoReader(video)
+    frames = np.stack([f for _, f in zip(range(meta["input_shape"][0]),
+                                         (f for _, f in
+                                          reader.iter_frames()))])
+    reader.close()
+    x = torch.from_numpy(frames).to(device)
+    (mu, lik), seconds, launches = counted(call, x)
+    out = {"input_shape": meta["input_shape"],
+           "platforms": meta["platforms"], "seconds": seconds,
+           "finite": bool(torch.isfinite(mu).all() and
+                          torch.isfinite(lik).all()),
+           "launches": launches}
+    emit({"phase": "workflow", "command": "export-model served batch",
+          **out})
+    return out
+
+
+def triangulate_views(config3d, truth: dict, command) -> dict:
+    """``triangulate`` through the CLI on two pose tables: a seeded 3-D
+    trajectory projected through the true cameras (tables written with
+    infer/export.py's H5 writer; where h5py is absent the command is not
+    run and ``command`` reports it). Called inside ``h5_writes(tables=
+    True)``. Returns the largest error against
+    the trajectory, or {} where it did not run."""
+    import numpy as np
+
+    from deepgraphpose_tpu_torch.infer import export
+
+    root = Path(config3d).parent
+    rng = np.random.default_rng(SEED + 3)
+    X = rng.uniform([-1, -1, 8], [1, 1, 12], (30, NUM_JOINTS, 3))
+    bps = [f"bp{j}" for j in range(NUM_JOINTS)]
+    Ps = (truth["K1"] @ np.hstack([np.eye(3), np.zeros((3, 1))]),
+          truth["K2"] @ np.hstack([truth["R"], truth["T"]]))
+    paths = []
+    for cam, P in zip(("cam1", "cam2"), Ps):
+        x = (P @ np.hstack([X.reshape(-1, 3),
+                            np.ones((X.size // 3, 1))]).T).T
+        xy = (x[:, :2] / x[:, 2:3]).reshape(30, NUM_JOINTS, 2)
+        path = root / f"stereo_{cam}.h5"
+        export.write_pose_h5(path, "chip", bps,
+                             {"x": xy[..., 0], "y": xy[..., 1],
+                              "likelihoods": np.ones((30, NUM_JOINTS))})
+        paths.append(path)
+    if command("triangulate", ["triangulate", config3d, *paths],
+               expect_import_error="h5py") is None:
+        return {}
+    import h5py
+
+    with h5py.File(root / "stereo_cam1_DGP_3D_3d.h5") as f:
+        xyz = f["df_with_missing_3d"]["xyz"][()]
+    return {"max_err": float(np.abs(xyz - X).max())}
+
+
 def kernel_class(name: str) -> str:
     """Sort a device kernel's name into decode, int8_gemm (the port's int8
     GEMM, matched before the library GEMMs), convolution, h2d (copies from
@@ -3724,6 +4241,7 @@ def main() -> int:
         serving, served = phase_serving(device, workdir, final)
         headonly = phase_headonly(device, workdir, fit_lines)
         render = phase_render(device, workdir, final, served)
+        workflow = phase_workflow(device, workdir)
         phase_profile(cfg, device, model, qmodel, train_step2, fit_steps,
                       (mobile["cfg"], mobile["model"]))
 
@@ -3735,6 +4253,8 @@ def main() -> int:
     by_path.update(serving)
     by_path.update(headonly)
     by_path.update(render)
+    by_path.update({f"workflow {name}": counts
+                    for name, counts in workflow.items()})
     decode_by_path = {"full_frame": full_launches,
                       "tracked_crop": crop_launches,
                       "mobilenet_full_frame": mobile["full_launches"],

@@ -24,7 +24,14 @@ Training spreads over the ranks of a
 ``torch.distributed`` process group (``data_parallel``) and batches
 several windows an update (``windows_per_device``), and
 ``parallel.streaming.estimate_pose_multichip`` splits a video's time axis
-over the ranks (``parallel/``). The module
+over the ranks (``parallel/``). The DLC project workflow runs on it
+alone: the project tooling (``project/``: ``create_new_project``,
+``extract_frames``, the browser ``LabelServer``,
+``create_training_dataset``, hygiene, refinement, conversions),
+``threed/`` (stereo calibration, triangulation), DeepLabCut's spellings
+(``compat.py``) and the command line, ``python -m
+deepgraphpose_tpu_torch.cli``, whose ``--device`` picks the card or the
+CPU. The module
 layout and public names follow ``deepgraphpose_tpu``, which stays the
 reference; this package imports nothing of it, nor JAX. Entry points run on the card unless the caller
 passes ``device="cpu"``.
@@ -68,7 +75,70 @@ _LAZY_API = {
                               "extract_save_all_maps"),
     "display_dataset": ("deepgraphpose_tpu_torch.evaluation.maps",
                         "display_dataset"),
+    # the DLC project workflow (project/, threed/)
+    "create_new_project": ("deepgraphpose_tpu_torch.project",
+                           "create_new_project"),
+    "add_new_videos": ("deepgraphpose_tpu_torch.project", "add_new_videos"),
+    "extract_frames": ("deepgraphpose_tpu_torch.project", "extract_frames"),
+    "create_training_dataset": ("deepgraphpose_tpu_torch.project",
+                                "create_training_dataset"),
+    "merge_datasets": ("deepgraphpose_tpu_torch.project.refine",
+                       "merge_datasets"),
+    "mergeandsplit": ("deepgraphpose_tpu_torch.project.refine",
+                      "mergeandsplit"),
+    "LabelServer": ("deepgraphpose_tpu_torch.project.label_server",
+                    "LabelServer"),
+    "compare_video_lists_and_data_folders": (
+        "deepgraphpose_tpu_torch.project",
+        "compare_video_lists_and_data_folders"),
+    "drop_duplicates_in_annotation_files": (
+        "deepgraphpose_tpu_torch.project",
+        "drop_duplicates_in_annotation_files"),
+    "drop_annotations_for_deleted_images": (
+        "deepgraphpose_tpu_torch.project",
+        "drop_annotations_for_deleted_images"),
+    "drop_unannotated_images": ("deepgraphpose_tpu_torch.project",
+                                "drop_unannotated_images"),
+    "convertcsv2h5": ("deepgraphpose_tpu_torch.project.conversion",
+                      "convertcsv2h5"),
+    "convertannotationdata_fromwindows2unixstyle": (
+        "deepgraphpose_tpu_torch.project.conversion",
+        "convertannotationdata_fromwindows2unixstyle"),
+    "analyze_videos_converth5_to_csv": (
+        "deepgraphpose_tpu_torch.project.conversion",
+        "analyze_videos_converth5_to_csv"),
+    "merge_windowsannotationdataONlinuxsystem": (
+        "deepgraphpose_tpu_torch.project.conversion",
+        "merge_windowsannotationdataONlinuxsystem"),
+    # the modules whose ``show`` opens the browser UI, under the DLC names
+    "select_crop_parameters": ("deepgraphpose_tpu_torch.project",
+                               "crop_select"),
+    "multiple_individual_labeling_toolbox": (
+        "deepgraphpose_tpu_torch.project", "multi_individual"),
+    "create_new_project_3d": ("deepgraphpose_tpu_torch.threed",
+                              "create_new_project_3d"),
+    "calibrate_cameras": ("deepgraphpose_tpu_torch.threed",
+                          "calibrate_cameras"),
+    "triangulate": ("deepgraphpose_tpu_torch.threed", "triangulate"),
+    "create_labeled_video_3d": ("deepgraphpose_tpu_torch.threed.plotting3d",
+                                "create_labeled_video_3d"),
 }
+
+# DeepLabCut's spellings (compat.py), so that
+# ``import deepgraphpose_tpu_torch as deeplabcut`` runs DLC project scripts
+for _name in ("label_frames", "refine_labels", "launch_dlc",
+              "train_network",
+              "return_train_network_path", "return_evaluate_network_data",
+              "load_demo_data", "create_pretrained_human_project",
+              "create_training_model_comparison",
+              "adddatasetstovideolistandviceversa", "check_undistortion",
+              "comparevideolistsanddatafolders",
+              "dropannotationfileentriesduetodeletedimages",
+              "dropimagesduetolackofannotation",
+              "dropduplicatesinannotatinfiles",
+              "ShortenVideo", "DownSampleVideo", "create_labeled_video"):
+    _LAZY_API[_name] = ("deepgraphpose_tpu_torch.compat", _name)
+del _name
 
 
 def __getattr__(name):

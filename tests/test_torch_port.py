@@ -2,7 +2,9 @@
 
 * Every module of ``deepgraphpose_tpu_torch`` imports in a process where
   ``jax``, ``flax``, ``optax`` and ``deepgraphpose_tpu`` cannot be
-  imported, and no source of the port (nor ``chip_smoke.py``) names them.
+  imported, nor ``click``, ``sklearn``, ``h5py`` and ``matplotlib`` (the
+  card's host has none of them), and no source of the port (nor
+  ``chip_smoke.py``) names the first four or ``click``.
 * Tests marked ``cuda`` need an NVIDIA GPU. Whether one exists is decided
   inside the ``cuda_device`` fixture, so every pytest worker collects the
   same tests; without a card they skip. Run them on the card with
@@ -27,6 +29,9 @@ from deepgraphpose_tpu_torch.ops.kernels import softargmax_kernel as kernel
 
 REPO = Path(__file__).resolve().parents[1]
 BLOCKED = ("jax", "flax", "optax", "deepgraphpose_tpu")
+# absent on the card's host: imported only inside the functions that need
+# them, which raise ImportError there
+OPTIONAL = ("click", "sklearn", "h5py", "matplotlib")
 # the part_pred maps of the main path: ResNet-50 at 747x832 full frame and
 # at the tracked crop's (408, 448) window, batch 128, 5 joints
 _CFG = PoseConfig(net_type="resnet_50", num_joints=5)
@@ -47,7 +52,7 @@ def port_modules():
 def test_port_imports_without_jax():
     code = (
         "import sys\n"
-        f"for name in {BLOCKED!r}:\n"
+        f"for name in {BLOCKED + OPTIONAL!r}:\n"
         "    sys.modules[name] = None\n"
         "import importlib\n"
         f"for name in {port_modules()!r}:\n"
@@ -68,7 +73,16 @@ def test_port_imports_without_jax():
             "deepgraphpose_tpu_torch.parallel.mesh",
             "deepgraphpose_tpu_torch.parallel.distributed",
             "deepgraphpose_tpu_torch.parallel.train_dp",
-            "deepgraphpose_tpu_torch.parallel.streaming"} <= set(
+            "deepgraphpose_tpu_torch.parallel.streaming",
+            "deepgraphpose_tpu_torch.cli",
+            "deepgraphpose_tpu_torch.compat",
+            "deepgraphpose_tpu_torch.utils.experiments",
+            *(f"deepgraphpose_tpu_torch.project.{m}" for m in (
+                "conversion", "crop_select", "extract", "hygiene",
+                "label_server", "multi_individual", "new", "refine",
+                "training_dataset")),
+            *(f"deepgraphpose_tpu_torch.threed.{m}" for m in (
+                "calibration", "plotting3d", "triangulation"))} <= set(
                 port_modules())
 
 
@@ -90,7 +104,8 @@ def test_port_imports_without_tensorflow():
 
 def test_port_sources_name_no_jax():
     pattern = re.compile(
-        r"^\s*(import|from)\s+(jax|flax|optax|deepgraphpose_tpu)(\.|\s|$)",
+        r"^\s*(import|from)\s+(jax|flax|optax|click|deepgraphpose_tpu)"
+        r"(\.|\s|$)",
         re.M)
     files = list((REPO / "deepgraphpose_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
