@@ -210,6 +210,43 @@ last line is then never printed:
     commands that need matplotlib or h5py themselves (check-labels,
     analyze-skeleton, triangulate) are reported with their ImportError on
     a ``workflow_not_run`` line;
+13h. native_decode: the native batch JPEG decoder (``native/``, built
+    with g++ at first use; its build status is printed after the device
+    line: available, the library's path, or why not): ``FrameCache.
+    get_batch`` through the native decode against the cache's OpenCV
+    path, in turns, on 24 seeded 11-frame windows of the fit project's
+    746x832 video (wall ms a window; the two within 3 per channel value,
+    tests/test_native.py's bound); then the host-fed fit_dgp(wt=1) of the
+    fit phase (6 updates, Farneback flow) with the native decode and with
+    OpenCV's, each with its host assembly (``assemble_s``) split into the
+    decode and the flow, the decode launched once an update, every
+    window decoded by the route named. Where the library does not build
+    the phase times the OpenCV path alone and says why;
+13i. trained (ROADMAP item 12b): ResNet-50 in float32, ResNet-50 with
+    ``compute_dtype="bfloat16"`` and mobilenet_v2_1.0 in float32, each
+    trained by ``fit_dlc`` from the seeded init (trainable batch-norm) on
+    a twin of the fit project, on the labeled pool with the reference
+    augmentation on the card and scale jitter 0.5-1.25 (the no-ImageNet
+    recipe), positives within 17 px (pose_cfg's default; the project's
+    9 px leave a joint one or two positive cells), a constant rate
+    (0.02 for ResNet-50, 0.1 for MobileNetV2), 3960 updates (5940 for
+    MobileNetV2) as supersteps of 11 under deterministic cuDNN (a run
+    repeats exactly): updates, seconds and losses (finite, falling).
+    Over the 120-frame video, for each
+    float32-trained model: ``estimate_pose`` in float32 (TF32 off,
+    deterministic cuDNN) from the trained and from the untrained
+    snapshot, the labeled frames' RMSE to the labels (trained below
+    untrained), and bfloat16, int8 and (ResNet-50) residual int8 against
+    float32 (px median, p99 and max, also a joint at a time; likelihood
+    differences), the labeled frames' RMSE with batch-norm on each
+    frame's own statistics (a diagnostic of the moving ones), each int8
+    path's first batch checked conv by conv as in phase 10; the
+    bf16-trained ResNet-50 against the float32-trained one, both in
+    float32; the decode on every path, the GEMM kernels on the int8
+    paths only; then the trained ResNet-50 snapshot through
+    ``export_tf_arrays`` and ``import_tf_arrays`` (exact) and, where
+    tensorstore imports, an Orbax snapshot written and read back (exact),
+    else an ``orbax_not_run`` line with the reason;
 14. profile: where the device time goes, from torch.profiler over 3
     full-frame batches, 3 MobileNetV2 full-frame batches (its depthwise
     convs a class of their own), 3 tracked-crop steps, 3 int8 full-frame
@@ -226,12 +263,12 @@ Every kernel wrapper counts its launches (a superstep adds each graph
 replay's captured launches); the counts are set to 0 just before each
 main-path run (phases 4, 5, 8, 10, 10b, 12, each fit run, each
 analysis path, each parallel path, a rank's in its own process, each
-served, head-only and render path, and each workflow command) and
-read just after, and every kernel that the path runs
-must show launches > 0. The
-weights are random, from a seeded torch.Generator; nothing is read from
-disk but the repository's own sources and the files the fit phase
-writes.
+served, head-only and render path, each workflow command, each host-fed
+native_decode run and each trained run and path) and read just after,
+and every kernel that the path runs must show launches > 0. The weights
+are random, from a seeded torch.Generator, or trained here from such an
+init (phases 13 and 13i); nothing is read from disk but the repository's
+own sources and the files the phases write.
 """
 
 from __future__ import annotations
@@ -1258,16 +1295,17 @@ def step_errors(run, ref) -> dict:
 
 
 @contextlib.contextmanager
-def deterministic():
-    """Deterministic cuDNN without autotuning, TF32 off: every process
-    picks the same algorithms for one shape."""
+def deterministic(allow_tf32: bool = False):
+    """Deterministic cuDNN without autotuning, TF32 off unless allowed:
+    every process picks the same algorithms for one shape."""
     import torch
 
     matmul_tf32 = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = allow_tf32
     try:
         with torch.backends.cudnn.flags(enabled=True, benchmark=False,
-                                        deterministic=True, allow_tf32=False):
+                                        deterministic=True,
+                                        allow_tf32=allow_tf32):
             yield
     finally:
         torch.backends.cuda.matmul.allow_tf32 = matmul_tf32
@@ -4027,6 +4065,444 @@ def triangulate_views(config3d, truth: dict, command) -> dict:
     return {"max_err": float(np.abs(xyz - X).max())}
 
 
+# --------------------------------------------------------------------------
+# native_decode: the host feed's batch JPEG decode (native/)
+# --------------------------------------------------------------------------
+
+NATIVE_WINDOW = TRAIN_BATCH + 1   # frames a host-fed step-2 window
+NATIVE_WINDOWS = 24               # windows timed on each path
+NATIVE_TOL = 3                    # per channel value (tests/test_native.py)
+
+
+def native_status_line() -> dict:
+    """The native decoder's build status (built, loaded from the build
+    directory, or why not), as ``native.status()`` gives it."""
+    from deepgraphpose_tpu_torch import native
+
+    line = {"phase": "native_build", **native.status()}
+    emit(line)
+    return line
+
+
+def get_batch_windows(video) -> dict:
+    """``FrameCache.get_batch`` over NATIVE_WINDOWS seeded windows of
+    NATIVE_WINDOW frames of ``video`` (every frame cached): the native
+    batch decode against the cache's OpenCV path (``get`` a frame, as
+    ``get_batch`` decodes without the library), wall ms a window, in turn
+    in one process, and the largest difference between the two."""
+    import numpy as np
+
+    from deepgraphpose_tpu_torch import native
+    from deepgraphpose_tpu_torch.data.video import FrameCache, VideoReader
+
+    reader = VideoReader(video)
+    cache = FrameCache(reader, range(reader.n_frames))
+    starts = np.random.default_rng(SEED).integers(
+        0, reader.n_frames - NATIVE_WINDOW, NATIVE_WINDOWS)
+    windows = [list(range(s, s + NATIVE_WINDOW)) for s in starts]
+    h, w = cache.get(0).shape[:2]
+
+    def opencv(idx):
+        return np.stack([cache.get(i) for i in idx])
+
+    available = native.load_framecache_lib() is not None
+    paths = {"native": cache.get_batch} if available else {}
+    paths["opencv"] = opencv
+    ms = {name: [] for name in paths}
+    worst = 0
+    for idx in windows:
+        out = {}
+        for name, fn in paths.items():
+            t0 = time.perf_counter()
+            out[name] = fn(idx)
+            ms[name].append(1e3 * (time.perf_counter() - t0))
+        if available:
+            worst = max(worst, int(np.abs(out["native"].astype(np.int16)
+                                          - out["opencv"]).max()))
+    reader.close()
+    return {"frames": [NATIVE_WINDOW, h, w, 3], "windows": NATIVE_WINDOWS,
+            "cached_mb": cache.nbytes / 1e6,
+            "ms_per_window": {k: {"median": float(np.median(v)),
+                                  "mean": float(np.mean(v)),
+                                  "first": v[0]} for k, v in ms.items()},
+            "speedup": (float(np.median(ms["opencv"])
+                              / np.median(ms["native"]))
+                        if available else None),
+            "max_abs_diff": worst if available else None}
+
+
+@contextlib.contextmanager
+def assemble_split(opencv: bool):
+    """Within the block, the wall seconds the host feed spends in
+    ``assemble_batch`` (``assemble_s``), in ``FrameCache.get_batch`` (the
+    decode) and in ``flow_magnitude_sequence`` (OpenCV's Farneback flow),
+    summed over its calls on the fit loop's producer thread, and the
+    batches the native library decoded; with ``opencv`` the library
+    declines every batch, so ``get_batch`` decodes with OpenCV a frame."""
+    from deepgraphpose_tpu_torch import native
+    from deepgraphpose_tpu_torch.data import flow, video
+    from deepgraphpose_tpu_torch.train import fit
+
+    spent = {"assemble_s": 0.0, "decode_s": 0.0, "flow_s": 0.0,
+             "assembled": 0, "decoded": 0, "flows": 0, "native_batches": 0}
+    saved = (fit.assemble_batch, video.FrameCache.get_batch,
+             flow.flow_magnitude_sequence, native.decode_jpeg_batch)
+
+    def timed(key, count, fn):
+        def wrapped(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                spent[key] += time.perf_counter() - t0
+                spent[count] += 1
+        return wrapped
+
+    def decode(*args, **kwargs):
+        out = None if opencv else saved[3](*args, **kwargs)
+        spent["native_batches"] += out is not None
+        return out
+
+    fit.assemble_batch = timed("assemble_s", "assembled", saved[0])
+    video.FrameCache.get_batch = timed("decode_s", "decoded", saved[1])
+    flow.flow_magnitude_sequence = timed("flow_s", "flows", saved[2])
+    native.decode_jpeg_batch = decode
+    try:
+        yield spent
+    finally:
+        (fit.assemble_batch, video.FrameCache.get_batch,
+         flow.flow_magnitude_sequence, native.decode_jpeg_batch) = saved
+
+
+def phase_native_decode(device, workdir) -> list:
+    """The native batch JPEG decoder on the fit project: its build status,
+    ``get_batch`` native against OpenCV on 11-frame windows of the
+    project's video (within NATIVE_TOL per channel value), and the
+    host-fed fit_dgp(wt=1) of the fit phase run again with the native
+    decode and with OpenCV's, each with its host assembly split into the
+    decode and the Farneback flow. Where the library does not build the
+    phase says why, times the OpenCV path alone and runs the fit once."""
+    from deepgraphpose_tpu_torch import native
+    from deepgraphpose_tpu_torch.train import fit
+
+    status = native.status()
+    root = Path(workdir) / "fit_project"
+    windows = get_batch_windows(root / "videos_dgp" / "synthvid.avi")
+    line = {"phase": "native_decode", "available": status["available"],
+            "reason": status["reason"], **windows}
+    emit(line)
+    if status["available"] and not line["max_abs_diff"] <= NATIVE_TOL:
+        raise AssertionError(f"native decode against OpenCV: {line}")
+    kw = dict(dlcpath=root, maxiters=FIT_WT_ITERS, displayiters=1,
+              saveiters=FIT_SAVE * TRAIN_BATCH, device=device,
+              batch_size=TRAIN_BATCH, wt=1.0)
+    runs = []
+    for feed in (("native", "opencv") if status["available"]
+                 else ("opencv",)):
+        with assemble_split(opencv=feed == "opencv") as spent:
+            run = fit_run(f"fit_dgp_wt_{feed}", fit.fit_dgp,
+                          dict(kw, debug=f"_wt_{feed}"), TRAIN_BATCH, 1)
+        per = max(spent["decoded"], 1)
+        split = {"phase": "native_fit", "run": run["run"], "decode": feed,
+                 "steps_per_s": run["steps_per_s"],
+                 "updates": run["updates"], "wall_s": run["wall_s"],
+                 **spent,
+                 "decode_ms_per_window": 1e3 * spent["decode_s"] / per,
+                 "flow_ms_per_window": 1e3 * spent["flow_s"] / per,
+                 "assemble_ms_per_window": 1e3 * spent["assemble_s"] / per,
+                 "launches": run["launches"]}
+        emit(split)
+        want_native = spent["decoded"] if feed == "native" else 0
+        if spent["native_batches"] != want_native or not spent["decoded"]:
+            raise AssertionError(f"{run['run']}: the windows took the wrong "
+                                 f"decode: {split}")
+        runs.append(run)
+    return runs
+
+
+# --------------------------------------------------------------------------
+# trained: a model trained on the card, and what bf16 and int8 cost it
+# --------------------------------------------------------------------------
+
+# updates a training run, in dispatches of SCAN_K
+TRAINED_ITERS = {"resnet_50": 3960, MOBILE_NET: 5940}
+TRAINED_DISPLAY = 220         # a loss read every 20 dispatches
+TRAINED_JITTER = (0.5, 1.25)  # the no-ImageNet recipe's scale jitter
+TRAINED_POS_DIST = 17         # px; pose_cfg's default (the project has 9)
+# a constant rate a backbone: the reference schedule's main rate for the
+# ResNets (0.005 is its warm-up, tuned for ImageNet weights)
+TRAINED_LR = {"resnet_50": 0.02, MOBILE_NET: 0.1}
+TRAINED_RUNS = (("resnet_50", "float32"), ("resnet_50", "bfloat16"),
+                (MOBILE_NET, "float32"))
+
+
+def px_error(pose: dict, ref: dict) -> dict:
+    """Each (frame, joint)'s distance between two trajectories, in px:
+    median, 99th percentile and largest, and a joint at a time; and the
+    likelihoods' largest and mean absolute difference."""
+    import numpy as np
+
+    d = np.hypot(pose["x"] - ref["x"], pose["y"] - ref["y"])
+    dl = np.abs(pose["likelihoods"] - ref["likelihoods"])
+    return {"median": float(np.median(d)),
+            "p99": float(np.percentile(d, 99)), "max": float(d.max()),
+            "median_by_joint": np.median(d, 0).tolist(),
+            "max_by_joint": d.max(0).tolist(),
+            "lik_max": float(dl.max()), "lik_mean": float(dl.mean())}
+
+
+def label_rmse(pose: dict, frames, coords_xy) -> dict:
+    """RMSE in px between a trajectory's labeled frames and the labels:
+    over every joint (``all``) and a joint at a time (``by_joint``)."""
+    import numpy as np
+
+    xy = np.stack([pose["x"][frames], pose["y"][frames]], -1)
+    sq = np.sum((xy - coords_xy) ** 2, -1)
+    return {"all": float(np.sqrt(sq.mean())),
+            "by_joint": np.sqrt(sq.mean(0)).tolist()}
+
+
+def batch_stat_rmse(root: Path, snapshot: Path, device, labels) -> dict:
+    """The labeled frames' RMSE of a model whose batch-norm runs on each
+    frame's own statistics, as it trained (batch 1), instead of its
+    moving ones: one frame at a time, the plain decode. A diagnostic of
+    the moving statistics, not a path users run."""
+    import numpy as np
+    import torch
+
+    from deepgraphpose_tpu_torch.core import checkpoint
+    from deepgraphpose_tpu_torch.core.paths import resolve_project
+    from deepgraphpose_tpu_torch.data.video import VideoReader
+    from deepgraphpose_tpu_torch.models.pose_model import PoseModel
+    from deepgraphpose_tpu_torch.ops.softargmax import softargmax_2d
+
+    frames, coords = labels
+    _, cfg, _ = resolve_project(root)
+    model = PoseModel(cfg).to(device)
+    checkpoint.load_snapshot(snapshot, model)
+    reader = VideoReader(root / "videos_dgp" / "synthvid.avi")
+    xy = []
+    with torch.no_grad(), deterministic():
+        for f in frames:
+            image = torch.from_numpy(reader.read_frame(int(f))[None])
+            maps = model(image.to(device), heads=("part_pred",),
+                         train=True)["part_pred"]
+            mu, _ = softargmax_2d(maps.float(), gamma=cfg.gamma,
+                                  gauss_len=cfg.gauss_len)
+            xy.append(mu[0].flip(-1).cpu().numpy() * cfg.stride
+                      + 0.5 * cfg.stride)
+    reader.close()
+    xy = np.stack(xy)
+    return label_rmse({"x": xy[..., 0], "y": xy[..., 1]},
+                      np.arange(len(frames)), coords)
+
+
+def trained_projects(workdir) -> tuple[dict, tuple]:
+    """The fit project's twin (the same seed, video and labels), copied
+    once for each training run of TRAINED_RUNS with its backbone, the
+    recipe's scale jitter, TRAINED_POS_DIST and a constant rate
+    TRAINED_LR; and (the labeled frames, their labels in px)."""
+    import shutil
+
+    from deepgraphpose_tpu_torch.core.paths import resolve_project
+    from deepgraphpose_tpu_torch.utils.synthetic import make_synthetic_project
+
+    base, frames, coords = make_synthetic_project(
+        Path(workdir) / "trained_base", n_frames=FIT_FRAMES,
+        n_labeled=FIT_LABELED, hw=HW, nj=NUM_JOINTS, seed=SEED)
+    roots = {}
+    for net_type, dtype in TRAINED_RUNS:
+        root = Path(workdir) / f"trained_{net_type}_{dtype}"
+        shutil.copytree(base, root)
+        _, cfg, train_dir = resolve_project(root)
+        cfg.net_type, cfg.max_to_keep = net_type, FIT_KEEP
+        cfg.scale_jitter_lo, cfg.scale_jitter_up = TRAINED_JITTER
+        cfg.pos_dist_thresh = TRAINED_POS_DIST
+        cfg.multi_step = [[TRAINED_LR[net_type], TRAINED_ITERS[net_type]]]
+        cfg.to_yaml(train_dir / "pose_cfg.yaml")
+        roots[net_type, dtype] = root
+    return roots, (frames, coords)
+
+
+def pose_of(root: Path, snapshot: Path, device, path: str,
+            **kw) -> tuple[dict, dict]:
+    """``estimate_pose`` of the project's 120-frame video from ``snapshot``
+    (no files written), counted from 0: (the trajectories, a line with
+    its wall seconds and launches). An int8 run's first batch is checked
+    conv by conv, the checks' own launches taken out of its count."""
+    from deepgraphpose_tpu_torch.infer.predict import estimate_pose
+
+    checks: list = []
+    with checked_first_int8_batch(path, checks), \
+            contextlib.redirect_stdout(sys.stderr):
+        pose, seconds, launches = counted(
+            estimate_pose, root / "config.yaml", snapshot,
+            root / "videos_dgp" / "synthvid.avi", root / "videos_pred",
+            save_pose=False, device=device, **kw)
+    for c in checks:
+        launches[c["route"]] -= 1
+    line = {"path": path, "seconds": seconds, "launches": launches}
+    if checks:
+        line["checked"] = check_summary(checks)
+    return pose, line
+
+
+def trained_paths(root: Path, final: Path, untrained: Path, device, labels,
+                  name: str) -> tuple[dict, dict]:
+    """A float32-trained model's paths over the video: float32 (TF32 off,
+    deterministic cuDNN) from the trained and the untrained snapshot,
+    bfloat16, int8 and (the ResNets) residual int8 against the float32
+    trajectories; the labeled frames' RMSE of both float32 runs and of
+    the trained model on batch statistics (``batch_stat_rmse``). Fails
+    unless every trajectory is finite, the trained RMSE is below the
+    untrained one, the decode launched on every path and the GEMM kernels
+    on the int8 paths only."""
+    import numpy as np
+
+    from deepgraphpose_tpu_torch.models.quant import supports_residual_int8
+
+    frames, coords = labels
+    with deterministic():
+        f32, f32_line = pose_of(root, final, device, f"{name} float32",
+                                compute_dtype="float32")
+        init, init_line = pose_of(root, untrained, device,
+                                  f"{name} untrained float32",
+                                  compute_dtype="float32")
+    runs = {"float32": f32_line, "untrained": init_line}
+    errors = {}
+    poses = {"float32": f32, "untrained": init}
+    paths = [("bfloat16", dict(compute_dtype="bfloat16")),
+             ("int8", dict(quantize=True))]
+    if supports_residual_int8(name):
+        paths.append(("int8_residual", dict(quantize="residual")))
+    for path, kw in paths:
+        poses[path], runs[path] = pose_of(root, final, device,
+                                          f"{name} {path}", **kw)
+        errors[path] = px_error(poses[path], f32)
+    rmse = {"trained": label_rmse(f32, frames, coords),
+            "untrained": label_rmse(init, frames, coords),
+            "trained_batch_stats": batch_stat_rmse(root, final, device,
+                                                   labels)}
+    out = {"phase": "trained_paths", "model": name,
+           "frames": int(f32["x"].shape[0]), "rmse_labeled_px": rmse,
+           "px_vs_float32": errors, "paths": runs}
+    if not supports_residual_int8(name):
+        out["int8_residual"] = ("not run: the residual int8 carry is a "
+                                "ResNet mode (models/quant.py)")
+    emit(out)
+    gemm = ("mm_tiled", "conv_int8")
+    launches_ok = all(
+        line["launches"]["softargmax_likelihood"] > 0
+        and all((line["launches"][k] > 0) == path.startswith("int8")
+                for k in gemm)
+        for path, line in runs.items())
+    finite = all(np.isfinite(p[k]).all() for p in poses.values()
+                 for k in ("x", "y", "likelihoods"))
+    if not (finite and launches_ok
+            and rmse["trained"]["all"] < rmse["untrained"]["all"]
+            and f32["x"].shape == (FIT_FRAMES, NUM_JOINTS)):
+        raise AssertionError(f"trained paths of {name}: {out}")
+    return out, f32
+
+
+def trained_round_trips(final: Path) -> dict:
+    """The trained ResNet-50 snapshot on this host: ``export_tf_arrays``
+    then ``import_tf_arrays`` (exact), and the Orbax snapshot written and
+    read back (exact) where tensorstore imports, else ``orbax_not_run``
+    with the reason."""
+    import torch
+
+    from deepgraphpose_tpu_torch.core import checkpoint
+    from deepgraphpose_tpu_torch.core.config import PoseConfig
+    from deepgraphpose_tpu_torch.models import tf_import
+    from deepgraphpose_tpu_torch.models.pose_model import PoseModel
+
+    model = PoseModel(PoseConfig(net_type="resnet_50",
+                                 num_joints=NUM_JOINTS))
+    checkpoint.load_snapshot(final, model)
+    state = model.state_dict()
+    arrays = tf_import.export_tf_arrays(state, "resnet_50")
+    back, report = tf_import.import_tf_arrays(
+        {k: torch.zeros_like(v) for k, v in state.items()}, arrays,
+        "resnet_50")
+    tf_exact = not report["missing"] and all(
+        torch.equal(back[k], v) for k, v in state.items())
+    out = {"phase": "trained_round_trips", "tf_arrays": len(arrays),
+           "tf_exact": tf_exact}
+    try:
+        import tensorstore  # noqa: F401
+    except ImportError as e:
+        emit({"phase": "orbax_not_run", "reason": f"ImportError: {e}"})
+        out["orbax_exact"] = None
+    else:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_orbax_") as d:
+            path = checkpoint.save_snapshot_orbax(d, 0, "final--0", model)
+            twin = PoseModel(PoseConfig(net_type="resnet_50",
+                                        num_joints=NUM_JOINTS))
+            checkpoint.load_snapshot_orbax(path, twin)
+            out["orbax_exact"] = all(
+                torch.equal(a, b) for a, b in zip(
+                    state.values(), twin.state_dict().values()))
+    emit(out)
+    if not tf_exact or out["orbax_exact"] is False:
+        raise AssertionError(f"trained snapshot round trips: {out}")
+    return out
+
+
+def phase_trained(device, workdir) -> dict:
+    """Item 12b: ResNet-50 in float32 and in bfloat16 and mobilenet_v2_1.0
+    in float32 trained by ``fit_dlc`` on the fit project's twin from the
+    seeded init (trainable batch-norm), on the labeled pool with the
+    reference augmentation on the card (``trained_projects``' recipe),
+    TRAINED_ITERS updates as CUDA-graph supersteps of SCAN_K; then each
+    float32-trained model's paths (``trained_paths``), the bf16-trained
+    ResNet-50 against the float32-trained one (both evaluated in float32,
+    TF32 off), and the round trips of the trained ResNet-50 snapshot.
+    Returns every path's launches by name."""
+    from deepgraphpose_tpu_torch.core import checkpoint
+    from deepgraphpose_tpu_torch.core.paths import resolve_project
+    from deepgraphpose_tpu_torch.train import fit
+
+    roots, labels = trained_projects(workdir)
+    finals, lines, f32 = {}, {}, None
+    for (net_type, dtype), root in roots.items():
+        name = f"trained_{net_type}_{dtype}"
+        _, cfg, train_dir = resolve_project(root)
+        if dtype == "float32":
+            model = fit._init_model(cfg, 0, None, "cpu")
+            untrained = checkpoint.save_snapshot(
+                Path(workdir) / f"untrained_{net_type}", 0, "final--0",
+                model)
+        with deterministic(allow_tf32=True):
+            run = fit_run(name, fit.fit_dlc, dict(
+                dlcpath=root, maxiters=TRAINED_ITERS[net_type],
+                displayiters=TRAINED_DISPLAY,
+                saveiters=TRAINED_ITERS[net_type] // 2, scan_iters=SCAN_K,
+                aug=True, compute_dtype=dtype, device=device), 1, 0)
+        finals[net_type, dtype] = train_dir / run["final"]
+        lines[name] = run["launches"]
+        if dtype == "float32":
+            out, pose = trained_paths(root, finals[net_type, dtype],
+                                      untrained, device, labels, net_type)
+            lines.update({f"{name} {p}": r["launches"]
+                          for p, r in out["paths"].items()})
+            if net_type == "resnet_50":
+                f32 = pose
+    with deterministic():
+        bf16, line = pose_of(roots["resnet_50", "float32"],
+                             finals["resnet_50", "bfloat16"], device,
+                             "resnet_50 bf16-trained",
+                             compute_dtype="float32")
+    lines["trained_resnet_50_bfloat16 float32"] = line["launches"]
+    emit({"phase": "trained_bf16_vs_f32", "model": "resnet_50",
+          "evaluated_in": "float32",
+          "rmse_labeled_px": {"float32_trained": label_rmse(f32, *labels),
+                              "bfloat16_trained": label_rmse(bf16, *labels)},
+          "px": px_error(bf16, f32), "launches": line["launches"]})
+    trained_round_trips(finals["resnet_50", "float32"])
+    return lines
+
+
 def kernel_class(name: str) -> str:
     """Sort a device kernel's name into decode, int8_gemm (the port's int8
     GEMM, matched before the library GEMMs), convolution, h2d (copies from
@@ -4196,6 +4672,7 @@ def main() -> int:
           "ptxas": {k: v.strip() for k, v in build.build_logs.items()}})
     emit({"phase": "device", "torch": torch.__version__,
           "cuda": torch.version.cuda, "python": sys.version.split()[0]})
+    native_status_line()
 
     cfg = PoseConfig(net_type="resnet_50", num_joints=NUM_JOINTS,
                      compute_dtype="bfloat16", infer_batch_size=BATCH)
@@ -4242,6 +4719,8 @@ def main() -> int:
         headonly = phase_headonly(device, workdir, fit_lines)
         render = phase_render(device, workdir, final, served)
         workflow = phase_workflow(device, workdir)
+        native_runs = phase_native_decode(device, workdir)
+        trained = phase_trained(device, workdir)
         phase_profile(cfg, device, model, qmodel, train_step2, fit_steps,
                       (mobile["cfg"], mobile["model"]))
 
@@ -4255,6 +4734,8 @@ def main() -> int:
     by_path.update(render)
     by_path.update({f"workflow {name}": counts
                     for name, counts in workflow.items()})
+    by_path.update({line["run"]: line["launches"] for line in native_runs})
+    by_path.update(trained)
     decode_by_path = {"full_frame": full_launches,
                       "tracked_crop": crop_launches,
                       "mobilenet_full_frame": mobile["full_launches"],

@@ -44,11 +44,28 @@ Weights bridge (:func:`state_dict_from_flax`, inverted by
 The snapshot bookkeeping (names, pruning to ``max_to_keep``, skip-if-final,
 the newest intermediate snapshot for a mid-step resume) is the JAX
 package's (ref: fitdgp.py:150-152, 237-245; ``final--0`` sorts last).
+
+The Orbax backend (:func:`save_snapshot_orbax`, :func:`load_snapshot_orbax`)
+keeps the same payload in a ``snapshot-step{N}-{it}.orbax/`` directory in
+the layout orbax's ``StandardCheckpointer`` writes and restores, read and
+written here with ``tensorstore`` (orbax itself imports JAX): an OCDBT
+key-value store (``manifest.ocdbt``, ``d/``) holding one zarr v2 array a
+leaf under the leaf's tree path joined by ``.`` (``variables.params.
+ResNetV1_0.conv1.kernel/``: ``.zarray`` and its chunks, zstd level 1), the
+tree in ``_METADATA`` (JSON: each leaf's keys and value type, an empty
+dict as ``Dict`` with ``skip_deserialize``; ``use_ocdbt: true``,
+``use_zarr3: false``) and ``_CHECKPOINT_METADATA``. orbax writes a
+process's arrays under ``ocdbt.process_0/`` and names that subtree in the
+root manifest; this writer commits them into the root store, which orbax
+reads the same way. tensorstore is imported inside the two functions.
 """
 
 from __future__ import annotations
 
+import json
 import re
+import shutil
+import time
 from pathlib import Path
 
 import numpy as np
@@ -57,6 +74,9 @@ import torch
 from deepgraphpose_tpu_torch.core import paths as paths_lib
 
 CKPT_SUFFIX = ".ckpt"
+ORBAX_SUFFIX = ".orbax"
+ORBAX_HANDLER = ("orbax.checkpoint._src.handlers.standard_checkpoint_handler."
+                 "StandardCheckpointHandler")
 HEAD_NAMES = ("part_pred", "locref_pred", "intermediate_supervision")
 # flax's auto-names of the backbone module inside the JAX PoseModel
 RESNET_SCOPE = "ResNetV1_0"
@@ -163,7 +183,10 @@ def load_snapshot(path: str | Path, model: torch.nn.Module | None = None,
 
     raw = msgpack.unpackb(Path(path).read_bytes(), ext_hook=_ext_hook,
                           raw=False, strict_map_key=False)
-    raw = _unchunk(raw)
+    return _restore(_unchunk(raw), model, optimizer)
+
+
+def _restore(raw: dict, model, optimizer):
     variables, opt_state = raw["variables"], raw.get("opt_state")
     if model is not None:
         model.load_state_dict(state_dict_from_flax(variables))
@@ -341,14 +364,20 @@ def save_snapshot(train_dir: str | Path, step: int, iteration: int | str,
     tensors are copied to the host here, the one sync a snapshot costs."""
     train_dir = Path(train_dir)
     train_dir.mkdir(parents=True, exist_ok=True)
+    name = paths_lib.snapshot_name(step, iteration, debug)
+    path = train_dir / f"{name}{CKPT_SUFFIX}"
+    path.write_bytes(msgpack_serialize(_payload(model, optimizer)))
+    _prune_snapshots(train_dir, step, max_to_keep, debug)
+    return path
+
+
+def _payload(model: torch.nn.Module, optimizer) -> dict:
+    """A snapshot's tree: the weights and, when given, the optimizer's
+    state, in the JAX package's names."""
     payload = {"variables": flax_from_state_dict(model.state_dict())}
     if optimizer is not None:
         payload["opt_state"] = opt_state_tree(optimizer, model)
-    name = paths_lib.snapshot_name(step, iteration, debug)
-    path = train_dir / f"{name}{CKPT_SUFFIX}"
-    path.write_bytes(msgpack_serialize(payload))
-    _prune_snapshots(train_dir, step, max_to_keep, debug)
-    return path
+    return payload
 
 
 def restore_backbone_and_heads(model: torch.nn.Module,
@@ -424,3 +453,123 @@ def latest_intermediate_snapshot(train_dir: str | Path, step: int,
     best = max(snaps, key=_snapshot_iter)
     m = re.search(r"-(\d+)\.ckpt$", best.name)
     return (best, int(m.group(1))) if m else None
+
+
+# ---------------------------------------------------------------------------
+# Orbax snapshots (see the module docstring)
+# ---------------------------------------------------------------------------
+
+def _tensorstore():
+    try:
+        import tensorstore
+    except ImportError as e:
+        raise ImportError(
+            "Orbax snapshots are read and written with tensorstore, which "
+            "this host lacks; save_snapshot / load_snapshot (.ckpt) need "
+            "only msgpack") from e
+    return tensorstore
+
+
+def _leaves_and_empties(tree: dict, prefix=()):
+    """(keys, leaf) in depth-first order; an empty dict is a leaf."""
+    for k, v in tree.items():
+        keys = prefix + (str(k),)
+        if isinstance(v, dict) and v:
+            yield from _leaves_and_empties(v, keys)
+        else:
+            yield keys, v
+
+
+def _tree_entry(keys: tuple, value_type: str, skip: bool) -> dict:
+    return {"key_metadata": [{"key": k, "key_type": 2} for k in keys],
+            "value_metadata": {"value_type": value_type,
+                               "skip_deserialize": skip}}
+
+
+def _zarr_spec(path: Path, keys) -> dict:
+    return {"driver": "zarr", "kvstore": {
+        "driver": "ocdbt", "base": f"file://{path}/",
+        "path": ".".join(keys) + "/"}}
+
+
+def save_snapshot_orbax(train_dir: str | Path, step: int,
+                        iteration: int | str, model: torch.nn.Module,
+                        optimizer=None, debug: str = "") -> Path:
+    """Write ``snapshot-step{step}-{iteration}.orbax/`` (replacing one of
+    that name): the payload of :func:`save_snapshot` in orbax's layout,
+    which the JAX package's ``load_snapshot_orbax`` restores. Requires
+    tensorstore."""
+    ts = _tensorstore()
+    train_dir = Path(train_dir)
+    train_dir.mkdir(parents=True, exist_ok=True)
+    name = paths_lib.snapshot_name(step, iteration, debug)
+    path = (train_dir / f"{name}{ORBAX_SUFFIX}").resolve()
+    payload = _payload(model, optimizer)
+    started = time.time_ns()
+    if path.exists():
+        shutil.rmtree(path)
+    path.mkdir()
+    context, txn = ts.Context(), ts.Transaction()
+    tree, writes = {}, []
+    for keys, leaf in _leaves_and_empties(payload):
+        if isinstance(leaf, dict):
+            tree[repr(keys)] = _tree_entry(keys, "Dict", True)
+            continue
+        arr = np.array(leaf, order="C")    # keeps a 0-d leaf 0-d
+        spec = dict(_zarr_spec(path, keys), metadata={
+            "shape": list(arr.shape), "chunks": list(arr.shape),
+            "dtype": arr.dtype.str, "fill_value": None, "order": "C",
+            "compressor": {"id": "zstd", "level": 1}, "filters": None,
+            "dimension_separator": "."})
+        store = ts.open(spec, create=True, context=context,
+                        transaction=txn).result()
+        writes.append(store.write(arr))
+        tree[repr(keys)] = _tree_entry(keys, "np.ndarray", False)
+    for w in writes:
+        w.result()
+    txn.commit_sync()
+    (path / "_METADATA").write_text(json.dumps({
+        "tree_metadata": tree, "use_ocdbt": True, "use_zarr3": False,
+        "store_array_data_equal_to_fill_value": True,
+        "custom_metadata": None}))
+    (path / "_CHECKPOINT_METADATA").write_text(json.dumps({
+        "item_handlers": ORBAX_HANDLER, "metrics": {},
+        "performance_metrics": {}, "init_timestamp_nsecs": started,
+        "commit_timestamp_nsecs": time.time_ns(), "custom_metadata": {}}))
+    return path
+
+
+def load_snapshot_orbax(path: str | Path,
+                        model: torch.nn.Module | None = None,
+                        optimizer=None):
+    """Read an Orbax snapshot directory (the JAX package's or
+    :func:`save_snapshot_orbax`'s); mirrors :func:`load_snapshot`: returns
+    (variables, opt_state_or_None) as nested dicts of numpy arrays and
+    loads ``model`` and ``optimizer`` when given. Requires tensorstore."""
+    ts = _tensorstore()
+    path = Path(path).resolve()
+    meta = json.loads((path / "_METADATA").read_text())
+    if not meta.get("use_ocdbt") or meta.get("use_zarr3"):
+        raise ValueError(f"{path}: only orbax's OCDBT layout of zarr v2 "
+                         "arrays is read (use_ocdbt true, use_zarr3 false)")
+    context = ts.Context()
+    raw: dict = {}
+    reads = []
+    for entry in meta["tree_metadata"].values():
+        keys = [k["key"] for k in entry["key_metadata"]]
+        node = raw
+        for k in keys[:-1]:
+            node = node.setdefault(k, {})
+        value = entry["value_metadata"]
+        if value.get("skip_deserialize"):
+            if value["value_type"] != "Dict":
+                raise ValueError(f"{path}: unexpected empty "
+                                 f"{value['value_type']} at {keys}")
+            node[keys[-1]] = {}
+            continue
+        store = ts.open(_zarr_spec(path, keys), open=True,
+                        context=context).result()
+        reads.append((node, keys[-1], store.read()))
+    for node, key, read in reads:
+        node[key] = np.asarray(read.result())
+    return _restore(raw, model, optimizer)

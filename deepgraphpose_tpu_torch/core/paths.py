@@ -102,6 +102,10 @@ def list_videos(directory: str | Path) -> list[str]:
 def resolve_project(dlcpath: str | Path, shuffle: int = 1,
                     trainingsetindex: int = 0):
     """(proj_cfg, pose_cfg, train_dir) from a DLC project directory."""
+    from deepgraphpose_tpu_torch.utils.compile_cache import \
+        ensure_compile_cache
+
+    ensure_compile_cache()
     dlcpath = Path(dlcpath)
     proj = ProjectConfig.from_yaml(dlcpath / "config.yaml")
     proj.project_path = str(dlcpath)

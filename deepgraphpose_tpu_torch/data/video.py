@@ -12,9 +12,10 @@ The port's own copy of ``deepgraphpose_tpu/data/video.py:30-186``:
   :func:`crop_video` (``deepgraphpose_tpu/data/video.py:187-252``).
 
 ``cv2`` is imported where a reader opens or a frame is coded, so the module
-imports on a host without OpenCV. The cache decodes with OpenCV only; the
-reference's optional libjpeg batch decoder (``native/framecache.cc``) has
-no copy here.
+imports on a host without OpenCV. ``FrameCache.get_batch`` decodes a batch
+of cached frames with the native libjpeg decoder (``native/``, threaded)
+where it builds, and frame by frame with OpenCV otherwise or where a frame
+is not cached.
 """
 
 from __future__ import annotations
@@ -116,6 +117,7 @@ class FrameCache:
 
         self.reader = reader
         self._jpegs: dict[int, bytes] = {}
+        self._shape = None
         want = sorted(set(int(i) for i in indices))
         want_set = set(want)
         self.nbytes = 0
@@ -128,6 +130,8 @@ class FrameCache:
                 ok, buf = cv2.imencode(".jpg", frame[..., ::-1], enc)
                 if ok:
                     self._jpegs[i] = buf.tobytes()
+                    if self._shape is None:
+                        self._shape = frame.shape
         self.nbytes = sum(len(b) for b in self._jpegs.values())
 
     def __contains__(self, index: int) -> bool:
@@ -143,7 +147,18 @@ class FrameCache:
         return cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
 
     def get_batch(self, indices) -> np.ndarray:
-        return np.stack([self.get(int(i)) for i in indices])
+        """Batch fetch; uses the native multithreaded JPEG decoder
+        (``native/``) when every index is cached, else OpenCV a frame."""
+        idxs = [int(i) for i in indices]
+        if self._shape is not None and all(i in self._jpegs for i in idxs):
+            from deepgraphpose_tpu_torch import native
+
+            h, w = self._shape[:2]
+            out = native.decode_jpeg_batch(
+                [self._jpegs[i] for i in idxs], h, w)
+            if out is not None:
+                return out
+        return np.stack([self.get(i) for i in idxs])
 
 
 def motion_energy(path: str | Path, resize_to: int | None = 256) -> np.ndarray:

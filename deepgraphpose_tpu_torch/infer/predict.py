@@ -73,6 +73,10 @@ def infer_forward(model: PoseModel, cfg: PoseConfig, images_u8: torch.Tensor):
 
 def make_infer_fn(model: PoseModel, cfg: PoseConfig):
     """(uint8 images on the model's device) -> (mu_rc, likelihood)."""
+    from deepgraphpose_tpu_torch.utils.compile_cache import \
+        ensure_compile_cache
+
+    ensure_compile_cache()
     return functools.partial(infer_forward, model, cfg)
 
 

@@ -5,7 +5,8 @@ The port's own copy of the local lookup in
 ``Check4weights`` resolves ImageNet TF checkpoints under
 ``pose_estimation_tensorflow/models/pretrained/`` (ref:
 auxfun_models.py:15-35); here the same resolution contract runs against
-local search roots only, and nothing is ever downloaded. When a
+local search roots only, and nothing is ever downloaded
+(:func:`download_weights` raises). When a
 checkpoint is absent the training entry points fall back to a seeded
 random init (``fit_dlc`` then trains batch-norm).
 
@@ -89,3 +90,14 @@ def check_for_weights(modeltype: str,
           f"DGP_PRETRAINED_DIR. Training will fall back to from-scratch "
           f"init (trainable BN).")
     return str(canonical), num_shuffles
+
+
+def download_weights(modeltype: str, model_path: str | Path) -> None:
+    """The reference downloads from tensorflow.org (auxfun_models.py:37-56);
+    this package has no network access and downloads nothing."""
+    raise RuntimeError(
+        f"no network egress to download '{modeltype}' weights; place the "
+        f"TF checkpoint at {model_path} yourself (any slim "
+        f"resnet_v1_*/mobilenet_v2_* export works — "
+        f"deepgraphpose_tpu_torch.models.tf_import converts it on load) or "
+        f"set DGP_PRETRAINED_DIR to a directory that holds it")

@@ -1,6 +1,10 @@
 """TF-checkpoint -> PyTorch weight importer.
 
-The port's own copy of ``deepgraphpose_tpu/models/tf_import.py:52-265``.
+The port's own copy of ``deepgraphpose_tpu/models/tf_import.py``, in
+both directions: TF arrays into a port state_dict, and a port state_dict
+out to TF-named arrays and a TF1 checkpoint the original DLC/DGP stack
+restores.
+
 The reference initializes its backbone from slim's ImageNet
 ``resnet_v1_50.ckpt`` (ref: README.md:50-53, demo/run_dgp_demo.py:108-111)
 and each training step restores the previous step's TF1 snapshot by
@@ -21,9 +25,10 @@ Layout notes:
 * slim BatchNorm {gamma, beta, moving_mean, moving_variance} map onto
   FrozenBatchNorm {scale, bias} and {mean, var}.
 
-TensorFlow's checkpoint reader is imported inside
-:func:`load_tf_checkpoint_arrays` only; :func:`import_tf_arrays` is pure
-numpy and torch.
+TensorFlow is imported inside :func:`load_tf_checkpoint_arrays` and
+:func:`write_tf_checkpoint` only; :func:`import_tf_arrays` and
+:func:`export_tf_arrays` are pure numpy and torch, so they run on a host
+without TensorFlow.
 """
 
 from __future__ import annotations
@@ -57,9 +62,15 @@ def _deconv_from_tf(arr: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(arr[::-1, ::-1].transpose(0, 1, 3, 2))
 
 
+def _deconv_to_tf(arr: np.ndarray) -> np.ndarray:
+    """Inverse of :func:`_deconv_from_tf` (used by the exporter)."""
+    return np.ascontiguousarray(arr.transpose(0, 1, 3, 2)[::-1, ::-1])
+
+
 def _depthwise_from_tf(arr: np.ndarray) -> np.ndarray:
     """TF depthwise (H, W, C, mult=1) -> flax grouped conv (H, W, 1, C):
-    TF applies filter [:, :, c, 0] to channel c, flax kernel[:, :, 0, c]."""
+    TF applies filter [:, :, c, 0] to channel c, flax kernel[:, :, 0, c].
+    Self-inverse (mult == 1), so the exporter reuses it."""
     return np.ascontiguousarray(arr.transpose(0, 1, 3, 2))
 
 
@@ -259,3 +270,48 @@ def import_tf_checkpoint(state: Mapping, ckpt_path: str,
     return import_tf_arrays(state, arrays, net_type=net_type, scopes=scopes)
 
 
+def export_tf_arrays(state: Mapping,
+                     net_type: str = "resnet_50") -> dict[str, np.ndarray]:
+    """A port ``PoseModel`` state_dict -> TF-named float32 arrays: the exact
+    inverse of :func:`import_tf_arrays` (ResNet-50/101/152, every
+    MobileNetV2 width), through the same name map."""
+    out = {}
+    for path, leaf in _iter_paths(flax_from_state_dict(state)):
+        entry = tf_name_for_path(path, net_type)
+        if entry is None:
+            continue
+        tf_name, transform = entry
+        arr = np.asarray(leaf, dtype=np.float32)
+        if transform is _deconv_from_tf:
+            arr = _deconv_to_tf(arr)
+        elif transform is _depthwise_from_tf:
+            arr = _depthwise_from_tf(arr)
+        out[tf_name] = arr
+    return out
+
+
+def write_tf_checkpoint(state: Mapping, ckpt_prefix: str,
+                        net_type: str = "resnet_50") -> str:
+    """Write a TF1 checkpoint a DLC/DGP TF harness can restore:
+    ``<ckpt_prefix>.{index,data-...}`` with slim's variable names
+    (``resnet_v1_50/...``, ``pose/part_pred/block4/...``), from a port
+    state_dict; the reverse of :func:`import_tf_checkpoint`. Returns the
+    prefix the Saver wrote. Requires tensorflow."""
+    try:
+        import tensorflow as tf
+    except ImportError as e:
+        raise ImportError(
+            "writing TF checkpoints requires tensorflow, which this host "
+            "lacks; export_tf_arrays gives the same arrays without it") from e
+
+    arrays = export_tf_arrays(state, net_type)
+    g = tf.Graph()
+    with g.as_default():
+        tf_vars = [tf.compat.v1.get_variable(name,
+                                             initializer=tf.constant(val))
+                   for name, val in arrays.items()]
+        saver = tf.compat.v1.train.Saver(var_list=tf_vars)
+        with tf.compat.v1.Session(graph=g) as sess:
+            sess.run(tf.compat.v1.global_variables_initializer())
+            out = saver.save(sess, str(ckpt_prefix))
+    return out

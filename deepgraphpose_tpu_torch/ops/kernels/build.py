@@ -1,8 +1,9 @@
 """Build the port's CUDA kernels with nvcc and bind them with ctypes.
 
 Each ``csrc/<name>.cu`` exposes a plain C launch function and compiles on
-its own into ``build/kernels/<name>-<hash>.so`` at the repository root,
-for ``sm_90a``. The hash covers the source and the flags, so an edited
+its own into ``build/kernels/<name>-<hash>.so`` at the repository root
+(``DGP_COMPILE_CACHE`` moves the root: ``utils/compile_cache.py``), for
+``sm_90a``. The hash covers the source and the flags, so an edited
 source rebuilds and an unchanged one loads from the build directory.
 :func:`build_all` starts one nvcc per source, all at once. Nothing here
 runs at import: the first call that launches a kernel builds it. A failed
@@ -18,9 +19,12 @@ import shutil
 import subprocess
 from pathlib import Path
 
+from deepgraphpose_tpu_torch.utils.compile_cache import (DEFAULT_BUILD_ROOT,
+                                                         build_dir)
+
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC = PACKAGE_DIR / "csrc"
-BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
+BUILD_DIR = DEFAULT_BUILD_ROOT / "kernels"   # without DGP_COMPILE_CACHE
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -43,14 +47,14 @@ def nvcc_path() -> str:
 def _target(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+    return build_dir("kernels") / f"{name}-{digest[:16]}.so"
 
 
 def _start(name: str):
     out = _target(name)
     if out.exists():
         return None
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,

@@ -2,8 +2,8 @@
 
 * Every module of ``deepgraphpose_tpu_torch`` imports in a process where
   ``jax``, ``flax``, ``optax`` and ``deepgraphpose_tpu`` cannot be
-  imported, nor ``click``, ``sklearn``, ``h5py`` and ``matplotlib`` (the
-  card's host has none of them), and no source of the port (nor
+  imported, nor ``click``, ``sklearn``, ``h5py``, ``matplotlib`` and
+  ``tensorstore`` (the card's host has none of them), and no source of the port (nor
   ``chip_smoke.py``) names the first four or ``click``.
 * Tests marked ``cuda`` need an NVIDIA GPU. Whether one exists is decided
   inside the ``cuda_device`` fixture, so every pytest worker collects the
@@ -31,7 +31,7 @@ REPO = Path(__file__).resolve().parents[1]
 BLOCKED = ("jax", "flax", "optax", "deepgraphpose_tpu")
 # absent on the card's host: imported only inside the functions that need
 # them, which raise ImportError there
-OPTIONAL = ("click", "sklearn", "h5py", "matplotlib")
+OPTIONAL = ("click", "sklearn", "h5py", "matplotlib", "tensorstore")
 # the part_pred maps of the main path: ResNet-50 at 747x832 full frame and
 # at the tracked crop's (408, 448) window, batch 128, 5 joints
 _CFG = PoseConfig(net_type="resnet_50", num_joints=5)
@@ -77,6 +77,8 @@ def test_port_imports_without_jax():
             "deepgraphpose_tpu_torch.cli",
             "deepgraphpose_tpu_torch.compat",
             "deepgraphpose_tpu_torch.utils.experiments",
+            "deepgraphpose_tpu_torch.utils.compile_cache",
+            "deepgraphpose_tpu_torch.native",
             *(f"deepgraphpose_tpu_torch.project.{m}" for m in (
                 "conversion", "crop_select", "extract", "hygiene",
                 "label_server", "multi_individual", "new", "refine",

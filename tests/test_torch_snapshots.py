@@ -410,7 +410,8 @@ def test_pretrained_lookup_is_local(work, monkeypatch, capsys):
     assert pretrained.check_for_weights("resnet_50") == (
         str(work / "resnet_v1_50.ckpt"), 1)
     assert pretrained.check_for_weights("vgg", num_shuffles=3)[1] == -1
-    assert not hasattr(pretrained, "download_weights")
+    with pytest.raises(RuntimeError, match="no network egress"):
+        pretrained.download_weights("resnet_50", work / "resnet_v1_50.ckpt")
 
 
 def test_demo_test_mode_ends_with_three_finals_and_a_pose_csv(tiny_resnet,
