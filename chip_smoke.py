@@ -4262,11 +4262,13 @@ def label_rmse(pose: dict, frames, coords_xy) -> dict:
             "by_joint": np.sqrt(sq.mean(0)).tolist()}
 
 
-def batch_stat_rmse(root: Path, snapshot: Path, device, labels) -> dict:
+def batch_stat_rmse(root: Path, snapshot: Path, device, labels,
+                    dtype: str = "float32") -> dict:
     """The labeled frames' RMSE of a model whose batch-norm runs on each
     frame's own statistics, as it trained (batch 1), instead of its
-    moving ones: one frame at a time, the plain decode. A diagnostic of
-    the moving statistics, not a path users run."""
+    moving ones: one frame at a time, computing in ``dtype`` over float32
+    weights, the plain decode. A diagnostic of the moving statistics, not
+    a path users run."""
     import numpy as np
     import torch
 
@@ -4278,7 +4280,7 @@ def batch_stat_rmse(root: Path, snapshot: Path, device, labels) -> dict:
 
     frames, coords = labels
     _, cfg, _ = resolve_project(root)
-    model = PoseModel(cfg).to(device)
+    model = PoseModel(cfg, dtype=dtype, param_dtype="float32").to(device)
     checkpoint.load_snapshot(snapshot, model)
     reader = VideoReader(root / "videos_dgp" / "synthvid.avi")
     xy = []
@@ -4295,6 +4297,116 @@ def batch_stat_rmse(root: Path, snapshot: Path, device, labels) -> dict:
     xy = np.stack(xy)
     return label_rmse({"x": xy[..., 0], "y": xy[..., 1]},
                       np.arange(len(frames)), coords)
+
+
+# one bf16 step-0 update with trainable batch-norm, card against CPU, with
+# the CPU's float32 update as the yardstick. A bf16 step of ResNet-50 with
+# batch statistics of one frame is mostly rounding noise: its momentum
+# traces lie a median 0.36-1.06 of each tensor's largest float32 value
+# from float32's (PERF.md), and two bf16 steps that round in a different
+# order are two draws of that noise, a tensor at a time. So a tensor's
+# card-to-CPU distance against the CPU's bf16-to-float32 distance (floor
+# 1e-6 of the tensor's largest float32 value: the CPU tests' bound) is
+# reported, not held. Held: the loss terms, within BF16_LOSS_REL of the
+# CPU's bf16 ones or as close as the CPU's bf16 term is to its float32
+# one; finite traces and moving statistics; and the card's median bf16
+# distance from float32 within BF16_NOISE_FACTOR of the CPU's either way:
+# the card's bf16 step is as far from float32 as the CPU's (a step that
+# ran in float32 would sit at the card's float32 distance from the CPU,
+# a median 7e-4).
+BF16_LOSS_REL = 1e-2
+BF16_NOISE_FACTOR = 1.5
+
+
+def bf16_step_card_vs_cpu(root: Path, snapshot: Path, device,
+                          labels) -> dict:
+    """From ``snapshot`` (the bf16-trained ResNet-50), one bf16 update of
+    ``make_dlc_train_step(bn_train=True)`` at the recipe's rate on the
+    first labeled frame (batch 1, 746x832, its labels) on the card under
+    deterministic cuDNN and on the CPU, and the CPU's float32 update: the
+    bounds above, and how far bf16 moves each trace from float32 (the
+    median and largest over the tensors of the distance over the tensor's
+    largest float32 value), on the CPU and on the card."""
+    import numpy as np
+    import torch
+
+    from deepgraphpose_tpu_torch.core import checkpoint
+    from deepgraphpose_tpu_torch.core.paths import resolve_project
+    from deepgraphpose_tpu_torch.data.video import VideoReader
+    from deepgraphpose_tpu_torch.models.pose_model import PoseModel
+    from deepgraphpose_tpu_torch.train import steps
+
+    frames, coords = labels
+    _, cfg, _ = resolve_project(root)
+    reader = VideoReader(root / "videos_dgp" / "synthvid.avi")
+    image = torch.from_numpy(reader.read_frame(int(frames[0]))[None])
+    reader.close()
+    xy = torch.from_numpy(np.asarray(coords[:1], np.float32))
+    present = torch.isfinite(xy[..., 0])
+    xy = torch.nan_to_num(xy)
+    rate = TRAINED_LR[cfg.net_type]
+
+    def update(dtype, dev):
+        model = PoseModel(cfg, dtype=dtype, param_dtype=torch.float32)
+        checkpoint.load_snapshot(snapshot, model)
+        model = model.to(dev, memory_format=torch.channels_last)
+        opt = steps.make_optimizer(model.parameters(), rate)
+        t0 = time.perf_counter()
+        losses = steps.make_dlc_train_step(model, cfg, opt, bn_train=True)(
+            image, xy, present)
+        losses = {k: v.item() for k, v in losses.items()}
+        seconds = time.perf_counter() - t0
+        traces = {k: opt.state[p]["momentum_buffer"].cpu()
+                  for k, p in model.named_parameters()}
+        stats = {k: v.cpu() for k, v in model.state_dict().items()
+                 if k.endswith((".mean", ".var"))}
+        return losses, traces, stats, seconds
+
+    with deterministic():
+        card = update(torch.bfloat16, device)
+        card32 = update(torch.float32, device)
+    cpu, cpu32 = update(torch.bfloat16, "cpu"), update(torch.float32, "cpu")
+
+    def ratios(got, want, want32) -> dict:
+        return {k: (got[k] - want[k]).abs().max().item() / max(
+            (want[k] - want32[k]).abs().max().item(),
+            1e-6 * want32[k].abs().max().item()) for k in want}
+
+    def spread(a, b) -> dict:
+        rel = [(a[k] - b[k]).abs().max().item() / b[k].abs().max().item()
+               for k in b]
+        return {"median": float(np.median(rel)), "max": float(max(rel))}
+
+    loss_ratio = {k: abs(card[0][k] - cpu[0][k]) / max(
+        BF16_LOSS_REL * abs(cpu[0][k]), abs(cpu[0][k] - cpu32[0][k]))
+        for k in cpu[0]}
+    ratio = {**ratios(card[1], cpu[1], cpu32[1]),
+             **ratios(card[2], cpu[2], cpu32[2])}
+    noise = {"cpu": spread(cpu[1], cpu32[1]),
+             "card": spread(card[1], card32[1])}
+    noise_ratio = noise["card"]["median"] / noise["cpu"]["median"]
+    finite = all(torch.isfinite(v).all().item()
+                 for part in (card[1], card[2]) for v in part.values())
+    out = {"phase": "trained_bf16_step_card_vs_cpu", "model": cfg.net_type,
+           "hw": list(image.shape[1:3]), "batch": 1, "lr": rate,
+           "losses": {"card": card[0], "cpu": cpu[0],
+                      "cpu_float32": cpu32[0]},
+           "loss_ratio": max(loss_ratio.values()),
+           "worst_ratio": max(ratio.values()), "tensors": len(ratio),
+           "past_one_distance": sorted(k for k, r in ratio.items()
+                                       if r > 1.0),
+           "past_two_distances": sorted(k for k, r in ratio.items()
+                                        if r > 2.0),
+           "finite": finite, "bf16_vs_float32_traces": noise,
+           "noise_ratio": noise_ratio,
+           "card_vs_cpu_float32_traces": spread(card32[1], cpu32[1]),
+           "seconds": {"card": card[3], "cpu": cpu[3],
+                       "cpu_float32": cpu32[3]}}
+    emit(out)
+    if (out["loss_ratio"] > 1.0 or not finite
+            or not 1 / BF16_NOISE_FACTOR <= noise_ratio <= BF16_NOISE_FACTOR):
+        raise AssertionError(f"bf16 step, card against CPU: {out}")
+    return out
 
 
 def trained_projects(workdir) -> tuple[dict, tuple]:
@@ -4457,8 +4569,11 @@ def phase_trained(device, workdir) -> dict:
     TRAINED_ITERS updates as CUDA-graph supersteps of SCAN_K; then each
     float32-trained model's paths (``trained_paths``), the bf16-trained
     ResNet-50 against the float32-trained one (both evaluated in float32,
-    TF32 off), and the round trips of the trained ResNet-50 snapshot.
-    Returns every path's launches by name."""
+    TF32 off), the bf16-trained one's labeled-frame RMSE on its moving and
+    on batch statistics (in float32, and in bfloat16 as it trained), one
+    bf16 update from it on the card against the
+    CPU (``bf16_step_card_vs_cpu``), and the round trips of the trained
+    ResNet-50 snapshot. Returns every path's launches by name."""
     from deepgraphpose_tpu_torch.core import checkpoint
     from deepgraphpose_tpu_torch.core.paths import resolve_project
     from deepgraphpose_tpu_torch.train import fit
@@ -4494,11 +4609,20 @@ def phase_trained(device, workdir) -> dict:
                              "resnet_50 bf16-trained",
                              compute_dtype="float32")
     lines["trained_resnet_50_bfloat16 float32"] = line["launches"]
+    bf16_root = roots["resnet_50", "bfloat16"]
+    rmse = {"float32_trained": label_rmse(f32, *labels),
+            "bfloat16_trained": label_rmse(bf16, *labels),
+            "bfloat16_trained_batch_stats": batch_stat_rmse(
+                bf16_root, finals["resnet_50", "bfloat16"], device, labels),
+            "bfloat16_trained_batch_stats_in_bfloat16": batch_stat_rmse(
+                bf16_root, finals["resnet_50", "bfloat16"], device, labels,
+                "bfloat16")}
     emit({"phase": "trained_bf16_vs_f32", "model": "resnet_50",
-          "evaluated_in": "float32",
-          "rmse_labeled_px": {"float32_trained": label_rmse(f32, *labels),
-                              "bfloat16_trained": label_rmse(bf16, *labels)},
+          "evaluated_in": "float32", "rmse_labeled_px": rmse,
+          "joint2_px": {k: v["by_joint"][2] for k, v in rmse.items()},
           "px": px_error(bf16, f32), "launches": line["launches"]})
+    bf16_step_card_vs_cpu(bf16_root, finals["resnet_50", "bfloat16"],
+                          device, labels)
     trained_round_trips(finals["resnet_50", "float32"])
     return lines
 

@@ -35,18 +35,26 @@ class DevicePrefetcher:
     producer: iterator of host batches.
     transfer: host batch -> device batch (e.g. :func:`host_to_device`).
     depth: queue size (2 = double buffering).
+
+    :meth:`close` stops the worker: a loop that stops early (a step that
+    raises) closes the prefetcher, so no thread keeps producing and holds
+    up to ``depth`` device batches.
     """
 
     def __init__(self, producer: Iterator, transfer: Callable, depth: int = 2):
         self._q: queue.Queue = queue.Queue(maxsize=depth)
         self._err = None
+        self._closed = threading.Event()
         self._thread = threading.Thread(
-            target=self._run, args=(producer, transfer), daemon=True)
+            target=self._run, args=(producer, transfer), daemon=True,
+            name="DevicePrefetcher")
         self._thread.start()
 
     def _run(self, producer, transfer):
         try:
             for item in producer:
+                if self._closed.is_set():
+                    return
                 self._q.put(transfer(item))
         except Exception as e:  # surfaced on next __next__
             self._err = e
@@ -63,3 +71,17 @@ class DevicePrefetcher:
                 raise self._err
             raise StopIteration
         return item
+
+    def close(self) -> None:
+        """Stop the worker and drop the batches it queued: drain the queue
+        (as the JAX package's ``close`` does, so that a worker blocked on
+        a full queue can go on) until the worker has finished the item it
+        was producing and left."""
+        self._closed.set()
+        while self._thread.is_alive():
+            try:
+                while True:
+                    self._q.get_nowait()
+            except queue.Empty:
+                pass
+            self._thread.join(timeout=0.05)

@@ -28,6 +28,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from deepgraphpose_tpu_torch.core import checkpoint as ckpt_lib  # noqa: F401
 from deepgraphpose_tpu_torch.core.checkpoint import (load_snapshot,
                                                      state_dict_from_flax)
 from deepgraphpose_tpu_torch.core.config import PoseConfig
@@ -37,8 +38,10 @@ from deepgraphpose_tpu_torch.data.prefetch import (DevicePrefetcher,
 from deepgraphpose_tpu_torch.data.video import VideoReader
 from deepgraphpose_tpu_torch.infer.export import (export_pose_like_dlc,
                                                   load_pose_from_dlc)
-from deepgraphpose_tpu_torch.models.pose_model import PoseModel
+from deepgraphpose_tpu_torch.models.pose_model import (  # noqa: F401
+    PoseModel, init_model)
 from deepgraphpose_tpu_torch.models.quant import QuantizedPoseModel
+from deepgraphpose_tpu_torch.ops.softargmax import softargmax_2d  # noqa: F401
 from deepgraphpose_tpu_torch.ops.kernels.softargmax_kernel import \
     softargmax_likelihood
 
@@ -246,14 +249,17 @@ def estimate_pose(proj_cfg_file: str | Path | None,
         depth=3)
     t0 = time.time()
     done = 0
-    for start, n_valid, images in pf:
-        mu, lik = infer(images)
-        mu = mu[:n_valid].cpu().numpy()
-        lik = lik[:n_valid].cpu().numpy()
-        end = min(start + n_valid, n_total)
-        mu_all[start:end] = mu[:end - start]
-        lik_all[start:end] = lik[:end - start]
-        done = end
+    try:
+        for start, n_valid, images in pf:
+            mu, lik = infer(images)
+            mu = mu[:n_valid].cpu().numpy()
+            lik = lik[:n_valid].cpu().numpy()
+            end = min(start + n_valid, n_total)
+            mu_all[start:end] = mu[:end - start]
+            lik_all[start:end] = lik[:end - start]
+            done = end
+    finally:
+        pf.close()
     dt = time.time() - t0
     reader.close()
     fps = done / dt if dt > 0 else float("inf")

@@ -23,7 +23,8 @@ from torch import nn
 
 from deepgraphpose_tpu_torch.core.config import PoseConfig
 from deepgraphpose_tpu_torch.core.device import resolve_device, resolve_dtype
-from deepgraphpose_tpu_torch.models import mobilenet, resnet
+from deepgraphpose_tpu_torch.models import mobilenet as mobilenet_lib
+from deepgraphpose_tpu_torch.models.resnet import make_backbone
 from deepgraphpose_tpu_torch.models.heads import PredictionHead
 
 
@@ -49,9 +50,9 @@ class PoseModel(nn.Module):
             "mean_pixel", torch.tensor(cfg.mean_pixel, dtype=torch.float32),
             persistent=False)
         mobile = cfg.net_type.startswith("mobilenet")
-        make_backbone = (mobilenet if mobile else resnet).make_backbone
-        self.backbone = make_backbone(cfg.net_type, cfg.output_stride,
-                                      self.dtype, self.param_dtype)
+        build = mobilenet_lib.make_backbone if mobile else make_backbone
+        self.backbone = build(cfg.net_type, cfg.output_stride, self.dtype,
+                              self.param_dtype)
         feat = self.backbone.out_depth
         nj, ds, pdtype = (cfg.num_joints, cfg.deconvolutionstride,
                           self.param_dtype)

@@ -33,6 +33,10 @@ MODEL_FILENAMES = {
     "mobilenet_v2_0.35": "mobilenet_v2_0.35_224.ckpt",
 }
 
+# DeeperCut MPII human model the reference downloads for
+# create_pretrained_human_project (auxfun_models.py:58-76)
+MPII_SNAPSHOT = "snapshot-1030000"
+
 
 def pretrained_search_roots(parent_path: str | Path | None = None
                             ) -> list[Path]:

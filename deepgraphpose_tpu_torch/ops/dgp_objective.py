@@ -32,7 +32,8 @@ from typing import Any
 import numpy as np
 import torch
 
-from deepgraphpose_tpu_torch.ops import cliques, losses, targets as targets_ops
+from deepgraphpose_tpu_torch.ops import (  # noqa: F401
+    cliques, losses, softargmax, targets as targets_ops)
 from deepgraphpose_tpu_torch.ops.kernels.softargmax_kernel import (
     softargmax_2d_cuda)
 

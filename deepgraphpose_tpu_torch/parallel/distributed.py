@@ -27,7 +27,8 @@ import os
 
 import torch
 
-from deepgraphpose_tpu_torch.parallel.mesh import DataGroup, replicate
+from deepgraphpose_tpu_torch.parallel.mesh import (  # noqa: F401
+    DATA_AXIS, DataGroup, replicate)
 
 
 def initialize(coordinator_address: str | None = None,

@@ -34,7 +34,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from deepgraphpose_tpu_torch.parallel.mesh import DataGroup
+from deepgraphpose_tpu_torch.parallel.mesh import (  # noqa: F401
+    DATA_AXIS, DataGroup)
 
 ALPHA, PCUTOFF = 0.5, 0.4      # the smoother's weight and confidence gate
 

@@ -25,8 +25,10 @@ from deepgraphpose_tpu_torch.core.config import PoseConfig
 from deepgraphpose_tpu_torch.models.resnet import BatchStats
 from deepgraphpose_tpu_torch.ops.augment_device import (DeviceAugmentConfig,
                                                         augment_batch)
-from deepgraphpose_tpu_torch.ops.dgp_objective import DGPLossParams
-from deepgraphpose_tpu_torch.parallel.mesh import DataGroup
+from deepgraphpose_tpu_torch.ops.dgp_objective import (  # noqa: F401
+    DGPLossParams, dgp_loss)
+from deepgraphpose_tpu_torch.parallel.mesh import (  # noqa: F401
+    DATA_AXIS, DataGroup)
 from deepgraphpose_tpu_torch.train import device_data as dd
 from deepgraphpose_tpu_torch.train.steps import _device, dlc_supervised_loss
 

@@ -64,7 +64,8 @@ from deepgraphpose_tpu_torch.data.batcher import (MultiDataset, assemble_batch,
 from deepgraphpose_tpu_torch.data.prefetch import (DevicePrefetcher,
                                                    host_to_device)
 from deepgraphpose_tpu_torch.models.pose_model import PoseModel, init_model
-from deepgraphpose_tpu_torch.ops.dgp_objective import loss_params
+from deepgraphpose_tpu_torch.ops.dgp_objective import (  # noqa: F401
+    DGPLossParams, compute_spatial_bounds, loss_params)
 from deepgraphpose_tpu_torch.train import device_data as dd
 from deepgraphpose_tpu_torch.train import steps as steps_lib
 from deepgraphpose_tpu_torch.utils import profiling
@@ -672,9 +673,12 @@ def fit_dlc(snapshot: str | None = None, dlcpath: str | Path = ".",
                     host_to_device(coords, device),
                     host_to_device(present, device))
 
-        for it, imgs, coords, present in DevicePrefetcher(producer(), transfer,
-                                                          depth=2):
-            log(it, train_step(imgs, coords, present), model, optimizer)
+        pf = DevicePrefetcher(producer(), transfer, depth=2)
+        try:
+            for it, imgs, coords, present in pf:
+                log(it, train_step(imgs, coords, present), model, optimizer)
+        finally:
+            pf.close()
     return log.finish(maxiters - 1, model, optimizer)
 
 
@@ -1123,7 +1127,10 @@ def _fit_dgp_impl(snapshot, dlcpath, shuffle, step, saveiters, displayiters,
             return (it, host_to_device(b.images, device),
                     b.as_torch(flow=flow, device=device))
 
-        for it, images, batch in DevicePrefetcher(producer(), transfer,
-                                                  depth=2):
-            log(it, train_step(images, batch), model, optimizer)
+        pf = DevicePrefetcher(producer(), transfer, depth=2)
+        try:
+            for it, images, batch in pf:
+                log(it, train_step(images, batch), model, optimizer)
+        finally:
+            pf.close()
     return log.finish(max(n_iters - 1, 0), model, optimizer)

@@ -26,8 +26,11 @@ from deepgraphpose_tpu_torch.core import checkpoint as ckpt_lib
 from deepgraphpose_tpu_torch.core.config import PoseConfig
 from deepgraphpose_tpu_torch.core.device import resolve_device
 from deepgraphpose_tpu_torch.models.heads import PredictionHead
-from deepgraphpose_tpu_torch.models.pose_model import _nhwc_f32
+from deepgraphpose_tpu_torch.models.pose_model import (  # noqa: F401
+    _nhwc_f32, init_model)
 from deepgraphpose_tpu_torch.train import steps as steps_lib
+from deepgraphpose_tpu_torch.train.steps import (  # noqa: F401
+    dlc_supervised_loss)
 
 # the PoseModel attributes (and snapshot subtrees) head-only training fits
 HEAD_KEYS = ("part_pred", "locref_pred")
