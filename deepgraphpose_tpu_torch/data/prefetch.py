@@ -4,6 +4,11 @@ A bounded background producer assembles numpy batches and starts their
 copies to the card, so batch t+1's transfer overlaps batch t's compute
 (the JAX package's ``data/prefetch.py``, with :func:`host_to_device` in
 place of ``jax.device_put``).
+
+Spans and a counter (``utils/profiling.py``): ``dgp.feed.pin``, the
+staging copy into pinned memory; ``dgp.feed.wait``, the consumer's wait
+for the next item; ``dgp.feed.starved``, the gets that found the queue
+empty.
 """
 
 from __future__ import annotations
@@ -15,6 +20,8 @@ from typing import Callable, Iterator
 import numpy as np
 import torch
 
+from deepgraphpose_tpu_torch.utils import profiling
+
 
 def host_to_device(x: np.ndarray, device: torch.device) -> torch.Tensor:
     """numpy -> tensor on ``device``. To the card the copy goes from pinned
@@ -22,7 +29,9 @@ def host_to_device(x: np.ndarray, device: torch.device) -> torch.Tensor:
     t = torch.from_numpy(np.ascontiguousarray(x))
     if torch.device(device).type != "cuda":
         return t.to(device)
-    return t.pin_memory().to(device, non_blocking=True)
+    with profiling.span("dgp.feed.pin"):
+        t = t.pin_memory()
+    return t.to(device, non_blocking=True)
 
 
 class _Stop:
@@ -65,7 +74,10 @@ class DevicePrefetcher:
         return self
 
     def __next__(self):
-        item = self._q.get()
+        if self._q.empty():
+            profiling.count("dgp.feed.starved")
+        with profiling.span("dgp.feed.wait"):
+            item = self._q.get()
         if isinstance(item, _Stop):
             if self._err is not None:
                 raise self._err

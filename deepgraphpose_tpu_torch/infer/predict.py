@@ -44,6 +44,7 @@ from deepgraphpose_tpu_torch.models.quant import QuantizedPoseModel
 from deepgraphpose_tpu_torch.ops.softargmax import softargmax_2d  # noqa: F401
 from deepgraphpose_tpu_torch.ops.kernels.softargmax_kernel import \
     softargmax_likelihood
+from deepgraphpose_tpu_torch.utils import profiling
 
 
 def inference_cudnn():
@@ -112,7 +113,8 @@ def make_multi_infer_fn(model: PoseModel, cfg: PoseConfig, num_outputs: int):
 def _batch_producer(reader: VideoReader, batch_size: int,
                     new_size=None, crop=None, max_frames=None):
     """Yield (start_index, n_valid, uint8 batch); the last batch is padded
-    with repeats of its last frame."""
+    with repeats of its last frame. Each batch's ``np.stack`` is the span
+    ``dgp.feed.assemble``."""
     import cv2
 
     buf, start = [], 0
@@ -126,12 +128,16 @@ def _batch_producer(reader: VideoReader, batch_size: int,
             frame = frame[y0:y1, x0:x1]
         buf.append(frame)
         if len(buf) == batch_size:
-            yield start, batch_size, np.stack(buf)
+            with profiling.span("dgp.feed.assemble"):
+                batch = np.stack(buf)
+            yield start, batch_size, batch
             start += batch_size
             buf = []
     if buf:
         pad = batch_size - len(buf)
-        yield start, len(buf), np.stack(buf + [buf[-1]] * pad)
+        with profiling.span("dgp.feed.assemble"):
+            batch = np.stack(buf + [buf[-1]] * pad)
+        yield start, len(buf), batch
 
 
 def load_model(pose_cfg: PoseConfig, dgp_model_file, dtype,
@@ -248,6 +254,7 @@ def estimate_pose(proj_cfg_file: str | Path | None,
         lambda item: (item[0], item[1], host_to_device(item[2], device)),
         depth=3)
     t0 = time.time()
+    feed_start = profiling.mark()
     done = 0
     try:
         for start, n_valid, images in pf:
@@ -263,7 +270,12 @@ def estimate_pose(proj_cfg_file: str | Path | None,
     dt = time.time() - t0
     reader.close()
     fps = done / dt if dt > 0 else float("inf")
-    print(f"[estimate_pose] {done} frames in {dt:.2f}s = {fps:.1f} frames/s")
+    feed = profiling.since(feed_start)
+    wait = feed["spans"]["dgp.feed.wait"]
+    print(f"[estimate_pose] {done} frames in {dt:.2f}s = {fps:.1f} frames/s; "
+          f"{feed['counters'].get('dgp.feed.starved', 0)} of "
+          f"{wait['count']} gets found the queue empty, "
+          f"{wait['mean_ms']:.2f} ms wait a get")
 
     stride = pose_cfg.stride
     xr = mu_all[:, :, 1] * stride + 0.5 * stride
