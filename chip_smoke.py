@@ -29,6 +29,15 @@ last line is then never printed:
    over a device-resident ring of 4 seeded uint8 batches, 1024 frames;
 5. tracked crop: ``estimate_pose_dynamic`` at 747x832 with a (408, 448)
    window and chunk 128 over 1024 frames of a seeded moving blob;
+5b. bn_tail: the frozen-BN tail kernel (``frozen_bn_act``) at the sites
+   of ResNet-50 and MobileNetV2 at batch 128 and 747x832 in bfloat16 (the
+   root BN + ReLU, the projection, identity and subsample unit tails, a
+   bottleneck's BN + ReLU, MobileNetV2's largest relu6 expand, a project
+   BN with the residual) and two of them in float32: bit for bit the
+   plain chain (``bn_act_kernel.plain``), its time beside the bound of the
+   bytes it reads and writes once and the plain chain's time, by CUDA
+   events. Every float inference path (4, 5 and the float paths after)
+   launches it, the int8 and training paths never;
 6. mm: the int8 GEMM kernel's ``mm_tiled`` (the port of ``pallas_mm``)
    against its plain version at the probe's 4096^3, int8 -> int32 and
    bf16 -> f32 exactly on the probe's small-integer operands, and bf16
@@ -175,8 +184,9 @@ last line is then never printed:
 13e. headonly: ``fit_dlc_heads`` from the fit phase's step-0 final
     snapshot, 210 updates: steps/s beside the fit phase's fit_dlc, the
     feature cache's bytes and forward seconds; the loss falls, the
-    backbone is bit-identical to the step-0 snapshot, the heads moved, and
-    ``estimate_pose`` runs from the snapshot written;
+    backbone is bit-identical to the step-0 snapshot, the heads moved, the
+    frozen-BN tail kernel launched in the feature cache and no kernel
+    elsewhere, and ``estimate_pose`` runs from the snapshot written;
 13f. render: ``plot_dgp`` from the step-2 snapshot on the fit project's
     video under deterministic cuDNN (the MP4 holds all 120 frames, its
     trajectories within 1e-4 px of ``estimate_pose``'s; wall frames/s, with
@@ -265,7 +275,9 @@ main-path run (phases 4, 5, 8, 10, 10b, 12, each fit run, each
 analysis path, each parallel path, a rank's in its own process, each
 served, head-only and render path, each workflow command, each host-fed
 native_decode run and each trained run and path) and read just after,
-and every kernel that the path runs must show launches > 0. The weights
+and every kernel that the path runs must show launches > 0; phases 4,
+5, 8, 10, 10b, 12, the fit runs and head-only also hold every other
+kernel at 0. The weights
 are random, from a seeded torch.Generator, or trained here from such an
 init (phases 13 and 13i); nothing is read from disk but the repository's
 own sources and the files the phases write.
@@ -312,6 +324,9 @@ TRAIN_PARITY_FRAMES = 3
 # convolutions in float32, in different orders and algorithms
 LOGIT_RTOL = 1e-3
 MOBILE_NET = "mobilenet_v2_1.0"   # the second backbone family, full width
+# the kernels by the names their wrappers count them under
+DECODE, BN_TAIL = "softargmax_likelihood", "frozen_bn_act"
+GEMMS = ("mm_tiled", "conv_int8")
 
 
 def emit(obj) -> None:
@@ -606,7 +621,6 @@ def phase_full_frame(cfg, device, model_f32, images4, mu_f32, pred_f32,
     from deepgraphpose_tpu_torch.infer.predict import (infer_forward,
                                                        make_infer_fn)
     from deepgraphpose_tpu_torch.models.pose_model import PoseModel
-    from deepgraphpose_tpu_torch.ops.kernels import softargmax_kernel
 
     model = PoseModel(cfg, dtype=torch.bfloat16)
     model.load_state_dict(model_f32.state_dict())
@@ -626,12 +640,12 @@ def phase_full_frame(cfg, device, model_f32, images4, mu_f32, pred_f32,
     infer(ring[0])                              # cuDNN autotunes this shape
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    softargmax_kernel.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     outs = [infer(ring[i % len(ring)]) for i in range(FRAMES // BATCH)]
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = softargmax_kernel.launches
+    launches = read_launches()
     mu, lik = outs[-1]
     ok = (tuple(mu.shape) == (BATCH, NUM_JOINTS, 2)
           and bool(torch.isfinite(mu).all()) and bool(torch.isfinite(lik).all())
@@ -644,7 +658,8 @@ def phase_full_frame(cfg, device, model_f32, images4, mu_f32, pred_f32,
            "bf16_vs_f32_logit_rel": bf16_logit_rel,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
     emit(out)
-    if (launches <= 0 or not ok or not np.isfinite(bf16_px["max"])
+    if (not launched(launches, (DECODE, BN_TAIL)) or not ok
+            or not np.isfinite(bf16_px["max"])
             or not np.isfinite(bf16_logit_rel)):
         raise AssertionError(f"{name} path failed: {out}")
     return model, launches, mu_bf16
@@ -679,18 +694,17 @@ def phase_tracked_crop(cfg, device, model):
     import torch
 
     from deepgraphpose_tpu_torch.infer.dynamic import estimate_pose_dynamic
-    from deepgraphpose_tpu_torch.ops.kernels import softargmax_kernel
 
     frames = moving_blob_frames(FRAMES)
     kw = dict(crop_hw=CROP_HW, chunk=BATCH, device=device)
     estimate_pose_dynamic(model, cfg, frames[:4 * BATCH], **kw)  # autotune
     torch.cuda.synchronize()
-    softargmax_kernel.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     res = estimate_pose_dynamic(model, cfg, frames, **kw)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = softargmax_kernel.launches
+    launches = read_launches()
     ok = (res["mu"].shape == (FRAMES, NUM_JOINTS, 2)
           and np.isfinite(res["mu"]).all()
           and np.isfinite(res["likelihoods"]).all())
@@ -700,7 +714,7 @@ def phase_tracked_crop(cfg, device, model):
            "cropped_share": float(res["cropped"].mean()),
            "launches": launches}
     emit(out)
-    if launches <= 0 or not ok:
+    if not launched(launches, (DECODE, BN_TAIL)) or not ok:
         raise AssertionError(f"tracked-crop path failed: {out}")
     return launches
 
@@ -715,6 +729,11 @@ def read_launches() -> dict:
     from deepgraphpose_tpu_torch.ops.kernels import launch_counts
 
     return launch_counts()
+
+
+def launched(counts: dict, kernels) -> bool:
+    """Whether each of ``kernels`` launched and no other kernel did."""
+    return all((n > 0) == (name in kernels) for name, n in counts.items())
 
 
 def op_bound(ops: float, n_bytes: float, ops_per_s: float) -> dict:
@@ -748,6 +767,125 @@ def library_ms(fn, inputs, reps: int):
         return time_ms(fn, inputs, reps), None
     except RuntimeError as err:
         return None, str(err).splitlines()[0][:200]
+
+
+# (site, (n, c, h, w), residual, act); the first is the kernels line's
+BN_SITES = (
+    ("block1_unit1_tail_projection", (BATCH, 256, 186, 207), "projection",
+     "relu"),
+    ("root_bn1_relu", (BATCH, 64, 374, 416), None, "relu"),
+    ("block1_unit2_tail_identity", (BATCH, 256, 186, 207), "identity",
+     "relu"),
+    ("block1_unit3_tail_subsample", (BATCH, 256, 93, 104), "subsample",
+     "relu"),
+    ("block1_bn2_relu", (BATCH, 64, 186, 207), None, "relu"),
+    ("block3_tail_identity", (BATCH, 1024, 47, 52), "identity", "relu"),
+    ("block4_tail_identity", (BATCH, 2048, 47, 52), "identity", "relu"),
+    ("mobilenet_expand_relu6", (BATCH, 96, 374, 416), None, "relu6"),
+    ("mobilenet_project_residual", (BATCH, 24, 187, 208), "identity",
+     "none"),
+)
+BN_F32_SITES = ("block1_unit1_tail_projection", "mobilenet_project_residual")
+BN_F32_BATCH = 16
+
+
+def bn_tail_inputs(shape, residual, dtype, device, generator):
+    """(x, inv, shift, r, inv_r, shift_r) of a site: channels_last seeded
+    values, factors away from 1 and 0 so that every op rounds; the
+    subsample residual is slim's x[:, :, ::2, ::2] view of a tensor twice
+    the size."""
+    import torch
+
+    n, c, h, w = shape
+
+    def randn(*size):
+        return torch.randn(size, generator=generator, device=device).to(
+            dtype).contiguous(memory_format=torch.channels_last)
+
+    x = randn(n, c, h, w)
+    inv = (0.5 + torch.rand(c, generator=generator, device=device)).to(dtype)
+    shift = torch.randn(c, generator=generator, device=device).to(dtype)
+    r = inv_r = shift_r = None
+    if residual in ("identity", "projection"):
+        r = randn(n, c, h, w)
+    elif residual == "subsample":
+        r = randn(n, c, 2 * h, 2 * w)[:, :, ::2, ::2]
+    if residual == "projection":
+        inv_r = (0.5 + torch.rand(c, generator=generator,
+                                  device=device)).to(dtype)
+        shift_r = torch.randn(c, generator=generator, device=device).to(dtype)
+    return x, inv, shift, r, inv_r, shift_r
+
+
+def events_ms(fn, reps: int) -> float:
+    """Mean device ms of ``reps`` eager calls after a warm-up call, by CUDA
+    events (each call's output is fresh memory; a graph would keep them
+    all)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def phase_bn_tail(device) -> dict:
+    """The frozen-BN tail kernel at each of BN_SITES in bfloat16, and at
+    BN_F32_SITES in float32 at batch BN_F32_BATCH: bit for bit the plain
+    chain, the kernel's and the chain's device ms, the bound of its bytes
+    (x and the residual read once, the output written once) at
+    HBM_BYTES_PER_S. Returns {"sites": [...]} for the kernels line."""
+    import torch
+
+    from deepgraphpose_tpu_torch.ops.kernels import bn_act_kernel as bk
+
+    generator = torch.Generator(device=device).manual_seed(SEED + 11)
+    rows = []
+    cases = [(name, shape, res, act, torch.bfloat16)
+             for name, shape, res, act in BN_SITES]
+    cases += [(name, (BN_F32_BATCH, *shape[1:]), res, act, torch.float32)
+              for name, shape, res, act in BN_SITES if name in BN_F32_SITES]
+    for name, shape, res, act, dtype in cases:
+        args = bn_tail_inputs(shape, res, dtype, device, generator)
+        assert bk.takes(args[0], args[3]), name
+        before = bk.launches
+        got = bk.frozen_bn_act(*args, act=act)
+        want = bk.plain(*args, act=act)
+        torch.cuda.synchronize()
+        bits = {torch.bfloat16: torch.int16, torch.float32: torch.int32}
+        bitwise = (got.shape == want.shape and got.stride() == want.stride()
+                   and torch.equal(got.view(bits[dtype]),
+                                   want.view(bits[dtype])))
+        max_abs_err = (got.float() - want.float()).abs().max().item()
+        del got, want
+        launches = bk.launches - before
+        x, r = args[0], args[3]
+        n_bytes = x.element_size() * x.numel() * (3 if r is not None else 2)
+        ms = events_ms(lambda: bk.frozen_bn_act(*args, act=act), 10)
+        plain_ms = events_ms(lambda: bk.plain(*args, act=act), 3)
+        row = {"site": name, "shape": list(shape), "dtype": str(dtype),
+               "residual": res, "act": act, "bitwise": bool(bitwise),
+               "max_abs_err": max_abs_err, "launches": launches,
+               "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": 1e3 * n_bytes / HBM_BYTES_PER_S,
+               "bound_by": "bytes", "bytes": n_bytes,
+               "gb_per_s": n_bytes / ms / 1e6}
+        row["share_of_bound"] = row["bound_ms"] / ms
+        rows.append(row)
+        del args, x, r
+        torch.cuda.empty_cache()
+    out = {"phase": "bn_tail", "hbm_bytes_per_s": HBM_BYTES_PER_S,
+           "sites": rows}
+    emit(out)
+    if not all(r["bitwise"] and r["launches"] == 1 for r in rows):
+        raise AssertionError(f"bn_tail: the kernel is not the chain: {out}")
+    return out
 
 
 def phase_mm(device) -> dict:
@@ -1068,8 +1206,8 @@ def phase_int8_full_frame(cfg, device, qmodel, name, images4, pred_f32,
            "px_vs": px, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
            "checked": check_summary(calls)}
     emit(out)
-    if (not ok or min(launches.values()) <= 0 or not rel < INT8_REL_ERR
-            or not corr > INT8_CORR):
+    if (not ok or not launched(launches, (DECODE, *GEMMS))
+            or not rel < INT8_REL_ERR or not corr > INT8_CORR):
         raise AssertionError(f"{name} failed: {out}")
     return out, calls
 
@@ -1108,7 +1246,8 @@ def phase_int8_tracked_crop(cfg, device, qmodel):
            "launches": launches, "checked": check_summary(calls),
            "checked_stem_in_hw": stem_hw}
     emit(out)
-    if min(launches.values()) <= 0 or not ok or CROP_HW not in stem_hw:
+    if (not launched(launches, (DECODE, *GEMMS)) or not ok
+            or CROP_HW not in stem_hw):
         raise AssertionError(f"int8 tracked-crop path failed: {out}")
     return out, calls
 
@@ -3121,16 +3260,18 @@ def serve_worker(art: str, inputs: str, out: str) -> int:
     import torch
 
     from deepgraphpose_tpu_torch.infer import serving
+    from deepgraphpose_tpu_torch.ops.kernels import launch_counts
 
     t0 = time.perf_counter()
     call, meta = serving.load_infer_artifact(art)
     load_s = time.perf_counter() - t0
     x = np.load(inputs)
     call(x)[0].cpu()
-    before = serving.softargmax_kernel.launches
+    before = launch_counts()
     mu, lik = (t.cpu() for t in call(x))
     torch.save({"mu": mu, "lik": lik, "load_s": load_s,
-                "launches": serving.softargmax_kernel.launches - before,
+                "launches": {k: n - before[k]
+                             for k, n in launch_counts().items()},
                 "platforms": meta["platforms"],
                 "blocked_loaded": sorted(
                     m for m, mod in sys.modules.items()
@@ -3230,9 +3371,7 @@ def phase_serving(device, workdir, final) -> tuple[dict, Path]:
                 (fresh["lik"] - outs[0][1].cpu()).abs().max().item())}
            if fresh else {})}
     if fresh:
-        launches["serving_fresh_process"] = {
-            **{k: 0 for k in read_launches()},
-            "softargmax_likelihood": fresh["launches"]}
+        launches["serving_fresh_process"] = fresh["launches"]
     del live, call
     torch.cuda.empty_cache()
 
@@ -3304,7 +3443,7 @@ def phase_serving(device, workdir, final) -> tuple[dict, Path]:
         "fresh process ran, JAX blocked": bool(
             fresh and not fresh["blocked_loaded"]),
         "fresh process launched the decode": bool(
-            fresh and fresh["launches"] > 0),
+            fresh and fresh["launches"][DECODE] > 0),
         "fresh process matches": bool(
             fresh and lines["fresh_process"]["vs_this_process"]
             <= SERVE_TOL),
@@ -3338,10 +3477,12 @@ class TimedLines:
 def phase_headonly(device, workdir, fit_lines) -> dict:
     """fit_dlc_heads from the fit phase's step-0 final snapshot: steps/s
     between its display syncs at HEAD_DISPLAY and the last, beside the
-    fit phase's fit_dlc; the feature cache's bytes and forward seconds;
-    the loss falls, the backbone is bit-identical to the step-0 snapshot,
-    the heads moved; the snapshot written runs in estimate_pose. Returns
-    {path: launches}."""
+    fit phase's fit_dlc; the feature cache's bytes, forward seconds and
+    launches; the loss falls, the backbone is bit-identical to the step-0
+    snapshot, the heads moved; the frozen-BN tail kernel launched only in
+    the feature cache (a forward under no_grad) and no other kernel
+    launched in the run; the snapshot written runs in estimate_pose.
+    Returns {path: launches}."""
     import numpy as np
     import torch
 
@@ -3357,12 +3498,15 @@ def phase_headonly(device, workdir, fit_lines) -> dict:
 
     def timed_features(*args, **kwargs):
         torch.cuda.synchronize()
+        before = read_launches()
         t0 = time.perf_counter()
         feats = precompute(*args, **kwargs)
         torch.cuda.synchronize()
         cache.update(seconds=time.perf_counter() - t0,
                      bytes=feats.numel() * feats.element_size(),
-                     shape=list(feats.shape))
+                     shape=list(feats.shape),
+                     launches={k: n - before[k]
+                               for k, n in read_launches().items()})
         return feats
 
     printed = TimedLines()
@@ -3426,8 +3570,9 @@ def phase_headonly(device, workdir, fit_lines) -> dict:
     if not (out["backbone_bit_identical"] and out["heads_moved"]
             and np.mean(losses[-3:]) < np.mean(losses[:3])
             and out["estimate_pose"]["finite"]
-            and pose_launches["softargmax_likelihood"] > 0
-            and not any(launches.values())):
+            and launched(pose_launches, (DECODE, BN_TAIL))
+            and launched(cache["launches"], (BN_TAIL,))
+            and launches == cache["launches"]):
         raise AssertionError(f"headonly checks failed: {out}")
     return {"fit_dlc_heads": launches,
             "fit_dlc_heads_estimate_pose": pose_launches}
@@ -4806,6 +4951,7 @@ def main() -> int:
     model, full_launches, mu_bf16 = phase_full_frame(
         cfg, device, model_f32, images4, mu_f32, pred_f32)
     crop_launches = phase_tracked_crop(cfg, device, model)
+    bn_tail = phase_bn_tail(device)
     mm = phase_mm(device)
 
     qmodel, seconds = phase_quantize(cfg, model_f32, residual=False)
@@ -4848,7 +4994,10 @@ def main() -> int:
         phase_profile(cfg, device, model, qmodel, train_step2, fit_steps,
                       (mobile["cfg"], mobile["model"]))
 
-    by_path = {name: path["launches"] for name, path in int8_paths.items()}
+    by_path = {"full_frame": full_launches, "tracked_crop": crop_launches,
+               "mobilenet_full_frame": mobile["full_launches"]}
+    by_path.update({name: path["launches"]
+                    for name, path in int8_paths.items()})
     by_path.update({line["phase"]: line["launches"] for line in train_lines})
     by_path.update({line["run"]: line["launches"] for line in fit_lines})
     by_path.update(analysis)
@@ -4860,11 +5009,9 @@ def main() -> int:
                     for name, counts in workflow.items()})
     by_path.update({line["run"]: line["launches"] for line in native_runs})
     by_path.update(trained)
-    decode_by_path = {"full_frame": full_launches,
-                      "tracked_crop": crop_launches,
-                      "mobilenet_full_frame": mobile["full_launches"],
-                      **{name: counts["softargmax_likelihood"]
-                         for name, counts in by_path.items()}}
+    decode_by_path = {name: counts[DECODE] for name, counts in by_path.items()}
+    bn_by_path = {name: counts[BN_TAIL] for name, counts in by_path.items()}
+    bn_main = bn_tail["sites"][0]           # block1 unit1's projection tail
     main_shape = kern["shapes"][0]          # the full-frame maps
     conv_int8 = conv["per_batch"]["conv_int8"]
     acc_err = {r: max(c["acc_err"] for c in checks if c["route"] == r)
@@ -4913,6 +5060,23 @@ def main() -> int:
         **{k: conv_int8[k] for k in ("ms", "plain_ms", "bound_ms",
                                      "bound_by", "library_ms")},
         "mobilenet_per_batch": mobile["conv"]["per_batch"]["conv_int8"],
+    }, {
+        "name": BN_TAIL, "route": "cuda",
+        "source": "deepgraphpose_tpu_torch/csrc/bn_act.cu",
+        "replaces": None,   # XLA fused the frozen-BN tail into the conv
+        "launches": sum(bn_by_path.values()),
+        "launches_by_path": bn_by_path,
+        "per_batch": {"resnet_50": full_launches[BN_TAIL] * BATCH // FRAMES,
+                      MOBILE_NET: mobile["full_launches"][BN_TAIL] * BATCH
+                      // FRAMES},
+        "max_abs_err": max(r["max_abs_err"] for r in bn_tail["sites"]),
+        "bitwise": all(r["bitwise"] for r in bn_tail["sites"]),
+        "site": bn_main["site"], "shape": bn_main["shape"],
+        **{k: bn_main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+        "library_ms": None,
+        "sites": [{k: r[k] for k in ("site", "shape", "dtype", "ms",
+                                     "plain_ms", "bound_ms", "gb_per_s")}
+                  for r in bn_tail["sites"]],
     }]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

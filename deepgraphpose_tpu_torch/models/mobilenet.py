@@ -15,7 +15,10 @@ pads explicitly where the two sides differ (:func:`same_pads`).
 
 Layout and precision as ``models/resnet.py``: NCHW tensors in
 ``channels_last`` memory, weights in ``param_dtype`` cast to the compute
-dtype at each conv, batch-norm in float32.
+dtype at each conv, batch-norm in float32. As there, inference on the card
+runs each batch-norm with its relu6, or with the unit's residual add, as
+one launch of ``csrc/bn_act.cu`` (``models/resnet.py::bn_act``), bitwise
+equal to the plain chain that every other call runs.
 """
 
 from __future__ import annotations
@@ -26,7 +29,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from deepgraphpose_tpu_torch.models.resnet import Conv2d, FrozenBatchNorm
+from deepgraphpose_tpu_torch.models.resnet import (Conv2d, FrozenBatchNorm,
+                                                   bn_act)
+# relu6 is the chain's activation (models/quant.py applies it as mnet.relu6)
+from deepgraphpose_tpu_torch.ops.kernels.bn_act_kernel import relu6  # noqa
 
 # (expansion, out_channels, num_units, first_stride)
 _V2_SPEC = (
@@ -128,10 +134,6 @@ def _depthwise_range(on: bool):
             else contextlib.nullcontext())
 
 
-def relu6(x: torch.Tensor) -> torch.Tensor:
-    return F.hardtanh(x, 0.0, 6.0)
-
-
 class InvertedResidual(nn.Module):
     """expand 1x1 -> depthwise 3x3 (stride, dilation) -> project 1x1, each
     followed by frozen BN, relu6 after the first two; the skip where the
@@ -155,10 +157,10 @@ class InvertedResidual(nn.Module):
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         y = x
         if self.has_expand:
-            y = relu6(self.expand_bn(self.expand(y), train))
-        y = relu6(self.depthwise_bn(self.depthwise(y), train))
-        y = self.project_bn(self.project(y), train)
-        return x + y if self.residual else y
+            y = bn_act(self.expand_bn, self.expand(y), train, "relu6")
+        y = bn_act(self.depthwise_bn, self.depthwise(y), train, "relu6")
+        return bn_act(self.project_bn, self.project(y), train,
+                      residual=x if self.residual else None)
 
 
 class MobileNetV2(nn.Module):
@@ -187,12 +189,12 @@ class MobileNetV2(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = False):
         x = x.to(self.dtype)
-        x = relu6(self.stem_bn(self.conv_stem(x), train))
+        x = bn_act(self.stem_bn, self.conv_stem(x), train, "relu6")
         end_points = {}
         for name in self.unit_names:
             x = getattr(self, name)(x, train)
             end_points[name.split("_")[0]] = x
-        x = relu6(self.head_bn(self.conv_head(x), train))
+        x = bn_act(self.head_bn, self.conv_head(x), train, "relu6")
         end_points["head"] = x
         return x, end_points
 

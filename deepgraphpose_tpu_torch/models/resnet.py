@@ -15,6 +15,13 @@ used here both reduce to a symmetric pad of ``rate * (k - 1) / 2``, which
 Layout: modules take NCHW tensors; the port keeps them in
 ``torch.channels_last`` memory so cuDNN runs NHWC convolutions.
 
+Inference on the card runs each conv's frozen batch-norm, with what
+follows it (the ReLU; in a unit's tail the shortcut's batch-norm, the
+residual add and the ReLU), as one launch of ``csrc/bn_act.cu``
+(:func:`bn_act`). Its output is bitwise the plain chain of PyTorch ops,
+which every other call runs: training, autograd, the CPU, float64, and
+layouts the kernel does not take (``bn_act_kernel.takes``).
+
 Precision follows flax's split of ``param_dtype`` and ``dtype``: conv
 weights live in ``param_dtype`` and are cast to the compute dtype (the
 input's) at each conv, so float32 weights train under bfloat16 compute;
@@ -30,6 +37,9 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from deepgraphpose_tpu_torch.ops.kernels import bn_act_kernel
+from deepgraphpose_tpu_torch.utils import profiling
 
 BLOCK_UNITS = {
     "resnet_50": (3, 4, 6, 3),
@@ -107,6 +117,12 @@ class FrozenBatchNorm(nn.Module):
     from-scratch mode of ``deepgraphpose_tpu/models/resnet.py:52-89``;
     ``train`` may also be a :class:`BatchStats` (per-window or global-batch
     statistics).
+
+    ``forward`` is the plain chain of PyTorch ops. Inference on the card
+    goes through :func:`bn_act` instead: one kernel launch for the
+    batch-norm and what follows it, bitwise equal to this chain. An
+    inference call of ``forward`` (no ``train``, no autograd: on the CPU,
+    in float64) counts ``dgp.bn.plain`` (``utils/profiling.py``).
     """
 
     momentum = 0.99
@@ -146,22 +162,75 @@ class FrozenBatchNorm(nn.Module):
             self.var.copy_(m * self.var + (1.0 - m) * use_var)
         return use_mean, use_var
 
+    def _affine(self, use_mean, use_var):
+        # inv in float32, then x * inv + (bias - mean * inv) in x's dtype
+        # (ref: deepgraphpose_tpu models/resnet.py:93-94)
+        inv = self.scale / torch.sqrt(use_var + self.epsilon)
+        return inv, self.bias - use_mean * inv
+
+    def frozen_affine(self, dtype: torch.dtype):
+        """The moving stats' (inv, shift) in ``dtype``, as ``forward``
+        applies them in inference."""
+        inv, shift = self._affine(self.mean, self.var)
+        return inv.to(dtype), shift.to(dtype)
+
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         if train:
             stats = train if isinstance(train, BatchStats) else BatchStats()
             use_mean, use_var = self._batch_stats(x, stats)
         else:
             use_mean, use_var = self.mean, self.var
-        # inv in float32, then x * inv + (bias - mean * inv) in x's dtype
-        # (ref: deepgraphpose_tpu models/resnet.py:93-94)
-        inv = self.scale / torch.sqrt(use_var + self.epsilon)
-        shift = self.bias - use_mean * inv
+            if not torch.is_grad_enabled():
+                profiling.count("dgp.bn.plain")
+        inv, shift = self._affine(use_mean, use_var)
         if inv.dim() == 2:              # per window: (windows, C)
             xw = x.unflatten(0, (inv.shape[0], -1))
             y = (xw * inv.to(x.dtype)[:, None, :, None, None]
                  + shift.to(x.dtype)[:, None, :, None, None])
             return y.flatten(0, 1)
         return x * inv.to(x.dtype)[:, None, None] + shift.to(x.dtype)[:, None, None]
+
+
+def _fuses(x: torch.Tensor, train, residual) -> bool:
+    """Whether :func:`bn_act` takes the kernel: inference (no ``train``, no
+    autograd) on a CUDA bfloat16 or float32 tensor, with a residual of the
+    same shape, type and device, laid out as the kernel reads them
+    (``bn_act_kernel.takes``: channels_last, whole 16-byte vectors)."""
+    return (not train and not torch.is_grad_enabled() and x.is_cuda
+            and x.dtype in bn_act_kernel.DTYPES
+            and (residual is None or (residual.shape == x.shape
+                                      and residual.dtype == x.dtype
+                                      and residual.device == x.device))
+            and bn_act_kernel.takes(x, residual))
+
+
+def bn_act(bn: FrozenBatchNorm, x: torch.Tensor, train=False,
+           act: str = "none", residual: torch.Tensor | None = None,
+           residual_bn: FrozenBatchNorm | None = None) -> torch.Tensor:
+    """``act(r + bn(x, train))`` with ``r`` the ``residual``, passed
+    through ``residual_bn`` first where one is given (no residual: just
+    ``act(bn(x, train))``); ``act`` is ``"none"``, ``"relu"`` or
+    ``"relu6"``.
+
+    In inference on the card (see :func:`_fuses`) this is one launch of
+    the kernel ``csrc/bn_act.cu``, which gives the plain chain's bits, and
+    counts the batch-norms it served as ``dgp.bn.fused``. Every other call
+    runs the plain chain of PyTorch ops.
+    """
+    if _fuses(x, train, residual):
+        inv, shift = bn.frozen_affine(x.dtype)
+        inv_r = shift_r = None
+        if residual_bn is not None:
+            inv_r, shift_r = residual_bn.frozen_affine(x.dtype)
+        profiling.count("dgp.bn.fused", 1 if residual_bn is None else 2)
+        return bn_act_kernel.frozen_bn_act(x, inv, shift, residual, inv_r,
+                                           shift_r, act)
+    y = bn(x, train)
+    if residual is not None:
+        if residual_bn is not None:
+            residual = residual_bn(residual, train)
+        y = residual + y
+    return bn_act_kernel.ACTIVATIONS[act](y)
 
 
 class BottleneckV1(nn.Module):
@@ -184,17 +253,19 @@ class BottleneckV1(nn.Module):
         self.bn3 = FrozenBatchNorm(depth)
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        """relu(shortcut + bn3(conv3(...))), the shortcut's batch-norm and
+        the tail in one :func:`bn_act`."""
         if self.project:
-            shortcut = self.shortcut_bn(self.shortcut_conv(x), train)
+            shortcut = self.shortcut_conv(x)
         elif self.stride != 1:
             # slim subsample(): 1x1 max-pool with stride
             shortcut = x[:, :, ::self.stride, ::self.stride]
         else:
             shortcut = x
-        y = F.relu(self.bn1(self.conv1(x), train))
-        y = F.relu(self.bn2(self.conv2(y), train))
-        y = self.bn3(self.conv3(y), train)
-        return F.relu(shortcut + y)
+        y = bn_act(self.bn1, self.conv1(x), train, "relu")
+        y = bn_act(self.bn2, self.conv2(y), train, "relu")
+        return bn_act(self.bn3, self.conv3(y), train, "relu", shortcut,
+                      self.shortcut_bn if self.project else None)
 
 
 def unit_plan(units: Sequence[int], output_stride: int):
@@ -258,7 +329,7 @@ class ResNetV1(nn.Module):
         x = x.to(self.dtype)
         # slim root: conv2d_same(64, 7, stride=2) -> pad (3,3) + VALID,
         # then a VALID 3x3/2 max-pool
-        x = F.relu(self.bn1(self.conv1(x), train))
+        x = bn_act(self.bn1, self.conv1(x), train, "relu")
         x = F.max_pool2d(x, 3, 2)
         end_points = {}
         for name in self.unit_names:
