@@ -16,7 +16,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from dgpbench.reference import models
+from dgpbench.reference import families, models
 
 PIXEL_STD = 60.0        # about the frames' spread around the mean pixel
 HEAD_GAIN = 1.5         # about the score maps' logit spread
@@ -58,11 +58,35 @@ def make_frames(seed: int, n: int, hw, device) -> np.ndarray:
     return out
 
 
+def shared_init(role: str, z: torch.Tensor, shape) -> torch.Tensor | None:
+    """The scaling of the standard normals ``z`` of a weight of a role
+    that every family uses, or None for a role of a family's own."""
+    if role in ("conv", "root", "linear"):
+        fan_in = shape[1] * shape[2] * shape[3]
+        gain = {"conv": 2.0, "linear": 1.0, "root": 1.0 / PIXEL_STD ** 2}[role]
+        return z * math.sqrt(gain / fan_in)
+    if role == "head":
+        # a transposed conv of stride 2: about (k / 2)^2 taps an output
+        return z * (HEAD_GAIN / math.sqrt(shape[0] * (shape[2] / 2) ** 2))
+    if role == "head_bias":
+        return 0.1 * z
+    kind, _, part = role.partition(".")
+    if kind not in ("bn", "bn_residual"):
+        return None
+    if part == "scale":
+        return (0.3 if kind == "bn_residual" else 1.0) * (1.0 + 0.1 * z)
+    if part == "var":
+        return torch.exp(0.2 * z)
+    return 0.1 * z
+
+
 @torch.no_grad()
 def make_weights(cfg: dict, seed: int, device) -> dict:
     """{state-dict name: float32 tensor on ``device``} for the model of
-    ``cfg``, from one draw of normals."""
+    ``cfg``, from one draw of normals. A role outside the shared ones is
+    scaled by the family's ``init``."""
     specs = models.param_specs(cfg)
+    family = families.find(cfg)
     total = sum(math.prod(shape) for _, shape, _ in specs)
     gen = torch.Generator(device=device).manual_seed(sub_seed(seed,
                                                               "weights"))
@@ -72,23 +96,11 @@ def make_weights(cfg: dict, seed: int, device) -> dict:
         n = math.prod(shape)
         z = flat[off:off + n].view(shape)
         off += n
-        if role in ("conv", "root", "linear"):
-            fan_in = shape[1] * shape[2] * shape[3]
-            gain = {"conv": 2.0, "linear": 1.0,
-                    "root": 1.0 / PIXEL_STD ** 2}[role]
-            t = z * math.sqrt(gain / fan_in)
-        elif role == "head":
-            # a transposed conv of stride 2: about (k / 2)^2 taps an output
-            t = z * (HEAD_GAIN / math.sqrt(shape[0] * (shape[2] / 2) ** 2))
-        elif role == "head_bias":
-            t = 0.1 * z
-        else:
-            kind, part = role.split(".")
-            if part == "scale":
-                t = (0.3 if kind == "bn_residual" else 1.0) * (1.0 + 0.1 * z)
-            elif part == "var":
-                t = torch.exp(0.2 * z)
-            else:
-                t = 0.1 * z
+        t = shared_init(role, z, shape)
+        if t is None and hasattr(family, "init"):
+            t = family.init(role, z, shape)
+        if t is None:
+            raise ValueError(f"{name}: role {role!r} is not shared and "
+                             f"family {cfg['family']!r} has no init for it")
         out[name] = t
     return out

@@ -19,6 +19,15 @@ that the queue, full after the warm-up, has drained where the host's
 producer is the slower stage) and ``check_block`` (frames a reference
 call).
 
+Two rates come out of one window. ``infer_frames_per_s`` is what a lab
+sees: the window's frames over its wall time, paced by the slower of the
+host's producer and the card. ``card_ms_per_frame`` is what a frame costs
+the card: two CUDA events on the loop's stream around each batch's call
+into the model and the decode, summed over the window's batches and
+divided by its frames. The copy to the card runs before the first event
+in stream order and the poses' copy back after the second, so the
+host's pace does not enter it.
+
 Correctness: every answer of the window (mu and likelihood of every
 joint of every frame whose poses reached the host) is held against the
 plain reference on the same frame and weights: the distance of mu from
@@ -193,13 +202,15 @@ def run(ctx: dict) -> dict:
     trace_from = warmup + traffic["trace_skip"]
     trace_to = trace_from + traffic["trace_batches"]
     prof = prof_t0 = prof_wall = None
-    idx, mus, liks, latency = [], [], [], []
+    idx, mus, liks, latency, card = [], [], [], [], []
     t0 = t_last = None
     pf = DevicePrefetcher(_batch_producer(RingReader(ring), batch),
                           transfer, depth=traffic["prefetch_depth"])
     try:
         for k, (start, n_valid, images, handed) in enumerate(pf):
+            began = _mark(device)
             mu, lik = infer(images)
+            ended = _mark(device)
             mu = mu[:n_valid].cpu().numpy()
             lik = lik[:n_valid].cpu().numpy()
             done = time.perf_counter()
@@ -215,6 +226,7 @@ def run(ctx: dict) -> dict:
             mus.append(mu)
             liks.append(lik)
             latency.append(done - handed)
+            card.append((began, ended))
             t_last = done
             if trace and k + 1 == trace_from:
                 from torch.profiler import ProfilerActivity, profile
@@ -236,9 +248,11 @@ def run(ctx: dict) -> dict:
                    if device.type == "cuda" else 0)
     window_s = t_last - t0
     n_frames = sum(len(i) for i in idx)
+    card_ms = sum(_elapsed_ms(a, b) for a, b in card)
     h2d = h2d_s[warmup:warmup + len(latency)]   # one a batch, in order
     out = {"metrics": {
         "infer_frames_per_s": n_frames / window_s,
+        "card_ms_per_frame": card_ms / n_frames,
         "infer_batch_ms_p95": 1e3 * float(np.percentile(latency, 95)),
         "setup_s": setup_s},
         "batches": len(latency), "window_s": window_s,
@@ -265,6 +279,7 @@ def run(ctx: dict) -> dict:
             "map_shape": (batch, mh, mw, cfg["num_joints"]),
             "frame_hw": tuple(cfg["frame_hw"]),
             "frames_per_s": out["metrics"]["infer_frames_per_s"],
+            "card_ms_per_frame": out["metrics"]["card_ms_per_frame"],
             "batch_ms_p95": out["metrics"]["infer_batch_ms_p95"],
             "host_spans": {"host_to_device": h2d},
             "config": cfg, "traffic": traffic})
@@ -292,6 +307,23 @@ def run(ctx: dict) -> dict:
 def _sync(device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def _mark(device):
+    """A point on the device's timeline: a CUDA event recorded on the
+    current stream, or on the CPU, which runs each call to its end, the
+    host's clock."""
+    if device.type != "cuda":
+        return time.perf_counter()
+    event = torch.cuda.Event(enable_timing=True)
+    event.record()
+    return event
+
+
+def _elapsed_ms(began, ended) -> float:
+    if isinstance(began, float):
+        return 1e3 * (ended - began)
+    return began.elapsed_time(ended)
 
 
 def control_readings(ctx: dict) -> dict:

@@ -3,10 +3,13 @@ reports, the profiler's trace reduced to a summary, and the import guard.
 
 A cell is found by its name alone: ``BENCHMARK.json`` names its
 configuration and traffic, ``workloads/<cell>.json`` holds its limits,
-``configs/<config>.json`` its sizes, ``traffic/<traffic>.json`` its
-driver and parameters, ``drivers/<driver>.py`` the code that drives it,
-and ``metrics/<metric>.py`` the reader of each per-layer metric. A later
-cell, traffic mix or metric is a new file, and no file here changes.
+``configs/<config>.json`` its sizes, whose ``family`` names
+``reference/families/<family>.py`` (the backbone's weights, forward pass
+and convolution plan), ``traffic/<traffic>.json`` its driver and
+parameters, ``drivers/<driver>.py`` the code that drives it, and
+``metrics/<metric>.py`` the reader of each per-layer metric. A later
+cell, traffic mix, metric or backbone family is a new file, and no file
+here changes.
 """
 
 from __future__ import annotations

@@ -1,20 +1,15 @@
-"""The two published architectures as plans of layers, read from a
-configuration file of ``configs/``.
-
-* ResNet-50 v1 as TF-slim's ``resnet_v1_50`` (He et al. 2016,
-  arXiv:1512.03385) with DeepLabCut's ``pose_net.py``: stride on the 3x3
-  of each block's last unit, output stride 16 by atrous convolution in
-  block 4, no global pool.
-* MobileNetV2 (Sandler et al. 2018, arXiv:1801.04381) as DeepLabCut's
-  ``pose_net_mobilenet.py`` wires it: TF SAME padding, relu6, output
-  stride 16 by dilation, the 1x1 to 1280 channels at the end.
-
-Both end in DeepLabCut's prediction layer: a 3x3 transposed convolution of
-stride ``deconvolution_stride`` to the score maps (and a second to the
-location refinement, which inference does not run).
+"""The published architectures as plans of layers, read from a
+configuration file of ``configs/``: each family's backbone from its module
+``families/<family>.py``, which also holds its description, then
+DeepLabCut's prediction layer: a 3x3 transposed convolution of stride
+``deconvolution_stride`` to the score maps (and a second to the location
+refinement, which inference does not run). What the families share
+(padding rules, slim's channel rounding) lives here.
 """
 
 from __future__ import annotations
+
+from dgpbench.reference import families
 
 
 def make_divisible(channels: float, multiplier: float,
@@ -25,53 +20,6 @@ def make_divisible(channels: float, multiplier: float,
     if v < 0.9 * channels * multiplier:
         v += divisor
     return v
-
-
-def resnet_units(cfg: dict):
-    """(name, depth, bottleneck depth, stride, rate) of every unit: stride
-    2 on the last unit of blocks 1-3, atrous once the stride reaches the
-    output stride (slim's ``stack_blocks_dense``)."""
-    plan, current, rate = [], 4, 1
-    for b, (n_units, depth, bottleneck) in enumerate(zip(
-            cfg["block_units"], cfg["block_depths"],
-            cfg["bottleneck_depths"])):
-        block_stride = 2 if b < len(cfg["block_units"]) - 1 else 1
-        for u in range(n_units):
-            stride = block_stride if u == n_units - 1 else 1
-            if stride != 1 and current >= cfg["output_stride"]:
-                eff, unit_rate, rate = 1, rate, rate * stride
-            else:
-                eff, unit_rate = stride, rate
-            plan.append((f"block{b + 1}_unit{u + 1}", depth, bottleneck, eff,
-                         unit_rate))
-            current *= eff
-    return plan
-
-
-def mobilenet_units(cfg: dict):
-    """(name, expansion, out channels, stride, rate) of every inverted
-    residual unit."""
-    width = cfg["width"]
-    plan, current, rate = [], 2, 1
-    for b, (exp, out_c, n_units, first_stride) in enumerate(
-            cfg["inverted_residual_spec"]):
-        out_ch = make_divisible(out_c, width)
-        for u in range(n_units):
-            stride = first_stride if u == 0 else 1
-            if stride != 1 and current >= cfg["output_stride"]:
-                eff, unit_rate, rate = 1, rate, rate * stride
-            else:
-                eff, unit_rate = stride, rate
-            plan.append((f"block{b}_unit{u}", exp, out_ch, eff, unit_rate))
-            current *= eff
-    return plan
-
-
-def mobilenet_depths(cfg: dict) -> tuple[int, int]:
-    """(stem channels, final 1x1 channels); slim keeps at least 1280."""
-    width = cfg["width"]
-    return (make_divisible(cfg["stem_depth"], width),
-            make_divisible(cfg["head_depth"], max(width, 1.0)))
 
 
 def same_pads(k: int, stride: int, rate: int, size: int) -> tuple[int, int]:
@@ -103,46 +51,7 @@ def layers(cfg: dict, hw) -> list[dict]:
                     "transposed": transposed})
         return tuple(out_hw)
 
-    h, w = hw
-    if cfg["family"] == "resnet_v1":
-        def slim(size, k, stride, rate):
-            keff = k + (k - 1) * (rate - 1)
-            return (size + 2 * slim_pad(k, rate) - keff) // stride + 1
-
-        cur = add("conv1", 7, 3, cfg["root_depth"], 2, 1, (h, w),
-                  (slim(h, 7, 2, 1), slim(w, 7, 2, 1)))
-        cur = ((cur[0] - 3) // 2 + 1, (cur[1] - 3) // 2 + 1)   # VALID pool
-        cin = cfg["root_depth"]
-        for name, depth, bn, stride, rate in resnet_units(cfg):
-            nxt = tuple(slim(n, 3, stride, rate) for n in cur)
-            if cin != depth:
-                add(f"{name}/shortcut_conv", 1, cin, depth, stride, 1, cur,
-                    nxt)
-            add(f"{name}/conv1", 1, cin, bn, 1, 1, cur, cur)
-            add(f"{name}/conv2", 3, bn, bn, stride, rate, cur, nxt)
-            add(f"{name}/conv3", 1, bn, depth, 1, 1, nxt, nxt)
-            cur, cin = nxt, depth
-    elif cfg["family"] == "mobilenet_v2":
-        def same(size, stride):
-            return -(-size // stride)
-
-        stem, head = mobilenet_depths(cfg)
-        cur = add("conv_stem", 3, 3, stem, 2, 1, (h, w),
-                  (same(h, 2), same(w, 2)))
-        cin = stem
-        for name, exp, out_ch, stride, rate in mobilenet_units(cfg):
-            mid = cin * exp
-            if exp != 1:
-                add(f"{name}/expand", 1, cin, mid, 1, 1, cur, cur)
-            nxt = (same(cur[0], stride), same(cur[1], stride))
-            add(f"{name}/depthwise", 3, mid, mid, stride, rate, cur, nxt,
-                groups=mid)
-            add(f"{name}/project", 1, mid, out_ch, 1, 1, nxt, nxt)
-            cur, cin = nxt, out_ch
-        add("conv_head", 1, cin, head, 1, 1, cur, cur)
-        cin = head
-    else:
-        raise ValueError(f"unknown architecture family {cfg['family']!r}")
+    cur, cin = families.find(cfg).layers(cfg, hw, add)
     s = cfg["deconvolution_stride"]
     add("part_pred", 3, cin, cfg["num_joints"], s, 1, cur,
         (cur[0] * s, cur[1] * s), transposed=True)

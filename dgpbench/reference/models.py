@@ -18,7 +18,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from dgpbench.reference import arch
+from dgpbench.reference import arch, families
 
 BN_EPS = 1e-5
 
@@ -38,10 +38,13 @@ def exact_float32():
 
 def param_specs(cfg: dict) -> list[tuple]:
     """(name, shape, role) of every weight, in the program's state-dict
-    names. Roles: ``conv`` (a conv whose input is an activation), ``root``
-    (the first conv, on raw pixels), ``linear`` (a conv whose output adds
-    into a residual stream without an activation), ``bn``, ``bn_residual``
-    (a batch norm that closes a residual branch), ``head``."""
+    names: the backbone's as its family declares them
+    (``families/<family>.py``), then the heads'. Roles: ``conv`` (a conv
+    whose input is an activation), ``root`` (the first conv, on raw
+    pixels), ``linear`` (a conv whose output adds into a residual stream
+    without an activation), ``bn``, ``bn_residual`` (a batch norm that
+    closes a residual branch), ``head``, ``head_bias``, and any role of a
+    family's own, which its ``init`` scales."""
     specs: list[tuple] = []
 
     def conv(name, cout, cin, k, role="conv"):
@@ -51,42 +54,7 @@ def param_specs(cfg: dict) -> list[tuple]:
         for part in ("scale", "bias", "mean", "var"):
             specs.append((f"backbone.{name}.{part}", (c,), f"{role}.{part}"))
 
-    if cfg["family"] == "resnet_v1":
-        conv("conv1", cfg["root_depth"], 3, 7, "root")
-        bn("bn1", cfg["root_depth"])
-        cin = cfg["root_depth"]
-        for name, depth, bneck, _, _ in arch.resnet_units(cfg):
-            if cin != depth:
-                conv(f"{name}.shortcut_conv", depth, cin, 1, "linear")
-                bn(f"{name}.shortcut_bn", depth)
-            conv(f"{name}.conv1", bneck, cin, 1)
-            bn(f"{name}.bn1", bneck)
-            conv(f"{name}.conv2", bneck, bneck, 3)
-            bn(f"{name}.bn2", bneck)
-            conv(f"{name}.conv3", depth, bneck, 1, "linear")
-            bn(f"{name}.bn3", depth, "bn_residual")
-            cin = depth
-        feat = cin
-    else:
-        stem, head = arch.mobilenet_depths(cfg)
-        conv("conv_stem", stem, 3, 3, "root")
-        bn("stem_bn", stem)
-        cin = stem
-        for name, exp, out_ch, stride, _ in arch.mobilenet_units(cfg):
-            mid = cin * exp
-            if exp != 1:
-                conv(f"{name}.expand", mid, cin, 1)
-                bn(f"{name}.expand_bn", mid)
-            conv(f"{name}.depthwise", mid, 1, 3)
-            bn(f"{name}.depthwise_bn", mid)
-            conv(f"{name}.project", out_ch, mid, 1, "linear")
-            residual = stride == 1 and cin == out_ch
-            bn(f"{name}.project_bn", out_ch,
-               "bn_residual" if residual else "bn")
-            cin = out_ch
-        conv("conv_head", head, cin, 1)
-        bn("head_bn", head)
-        feat = head
+    feat = families.find(cfg).specs(cfg, conv, bn)
     nj, k = cfg["num_joints"], 3
     heads = [("part_pred", nj)]
     if cfg["location_refinement"]:
@@ -97,7 +65,8 @@ def param_specs(cfg: dict) -> list[tuple]:
     return specs
 
 
-def _bn(w: dict, name: str, x: torch.Tensor) -> torch.Tensor:
+def frozen_bn(w: dict, name: str, x: torch.Tensor) -> torch.Tensor:
+    """Frozen batch norm ``name`` of NCHW ``x``."""
     inv = w[f"{name}.scale"] / torch.sqrt(w[f"{name}.var"] + BN_EPS)
     shift = w[f"{name}.bias"] - w[f"{name}.mean"] * inv
     return x * inv[:, None, None] + shift[:, None, None]
@@ -107,7 +76,9 @@ def plain_conv(x, weight, stride=1, padding=0, dilation=1, groups=1):
     return F.conv2d(x, weight, None, stride, padding, dilation, groups)
 
 
-def _same_conv(conv, x, weight, stride=1, rate=1, groups=1):
+def same_conv(conv, x, weight, stride=1, rate=1, groups=1):
+    """``conv`` with TF SAME padding (the odd pixel, if any, padded at
+    the high end)."""
     k = weight.shape[-1]
     (top, bottom), (left, right) = (arch.same_pads(k, stride, rate, n)
                                     for n in x.shape[-2:])
@@ -122,43 +93,9 @@ def relu6(x: torch.Tensor) -> torch.Tensor:
 
 
 def backbone(cfg: dict, w: dict, x: torch.Tensor, conv=plain_conv):
-    """NCHW float32 input (mean pixel subtracted) -> NCHW features."""
-    b = "backbone."
-    if cfg["family"] == "resnet_v1":
-        x = conv(x, w[b + "conv1.weight"], 2, arch.slim_pad(7, 1))
-        x = F.max_pool2d(torch.relu(_bn(w, b + "bn1", x)), 3, 2)
-        for name, depth, _, stride, rate in arch.resnet_units(cfg):
-            p = f"{b}{name}."
-            if x.shape[1] != depth:
-                sc = _bn(w, p + "shortcut_bn",
-                         conv(x, w[p + "shortcut_conv.weight"], stride, 0))
-            elif stride != 1:
-                sc = x[:, :, ::stride, ::stride]
-            else:
-                sc = x
-            y = torch.relu(_bn(w, p + "bn1", conv(x, w[p + "conv1.weight"])))
-            y = torch.relu(_bn(w, p + "bn2", conv(
-                y, w[p + "conv2.weight"], stride, arch.slim_pad(3, rate),
-                rate)))
-            y = _bn(w, p + "bn3", conv(y, w[p + "conv3.weight"]))
-            x = torch.relu(sc + y)
-        return x
-    x = relu6(_bn(w, b + "stem_bn",
-                  _same_conv(conv, x, w[b + "conv_stem.weight"], 2)))
-    for name, exp, _, stride, rate in arch.mobilenet_units(cfg):
-        p = f"{b}{name}."
-        y = x
-        if exp != 1:
-            y = relu6(_bn(w, p + "expand_bn",
-                          _same_conv(conv, y, w[p + "expand.weight"])))
-        dw = w[p + "depthwise.weight"]
-        y = relu6(_bn(w, p + "depthwise_bn", _same_conv(
-            conv, y, dw, stride, rate, groups=dw.shape[0])))
-        y = _bn(w, p + "project_bn",
-                _same_conv(conv, y, w[p + "project.weight"]))
-        x = x + y if (stride == 1 and x.shape[1] == y.shape[1]) else y
-    return relu6(_bn(w, b + "head_bn",
-                     _same_conv(conv, x, w[b + "conv_head.weight"])))
+    """NCHW float32 input (mean pixel subtracted) -> NCHW features, by the
+    configuration's family (``families/<family>.py``)."""
+    return families.find(cfg).backbone(cfg, w, x, conv)
 
 
 def head(w: dict, name: str, x: torch.Tensor, stride: int,

@@ -31,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from dgpbench.reference import arch, models
+from dgpbench.reference.families import resnet_v1
 
 CALIB_BATCH = 8
 
@@ -49,7 +50,7 @@ def _sites(cfg: dict):
     b = "backbone."
     out = [("conv1", b + "conv1", b + "bn1", 2, 1, True, None)]
     cin = cfg["root_depth"]
-    for name, depth, _, stride, rate in arch.resnet_units(cfg):
+    for name, depth, _, stride, rate in resnet_v1.resnet_units(cfg):
         p = f"{b}{name}."
         if cin != depth:
             out.append((f"{name}/shortcut_conv", p + "shortcut_conv",
@@ -68,7 +69,7 @@ def _walk(cfg: dict, x, conv_fn):
     """The ResNet topology over NCHW tensors; ``conv_fn(site, x)`` runs a
     site (with its own stride, rate and activation)."""
     x = F.max_pool2d(conv_fn("conv1", x), 3, 2)
-    for name, depth, _, stride, _ in arch.resnet_units(cfg):
+    for name, depth, _, stride, _ in resnet_v1.resnet_units(cfg):
         if x.shape[1] != depth:
             sc = conv_fn(f"{name}/shortcut_conv", x)
         elif stride != 1:

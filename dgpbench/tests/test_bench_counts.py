@@ -1,6 +1,7 @@
 """The frozen counters: multiply-adds of the published architectures, the
 layer plans against the reference's own convolutions, and the bounds."""
 
+import hashlib
 import json
 from pathlib import Path
 
@@ -81,6 +82,25 @@ def test_cell_shapes():
     dense = [s for s in sites if s["k"] == 1 and s["stride"] == 1]
     assert (len(sites), len(dense)) == (53, 36)
     assert len(flops.int8_sites(m, (747, 832))) == 35
+
+
+@pytest.mark.parametrize("name,n_specs,sha,macs,n_layers", [
+    ("resnet50_dlc_reaching", 269, "23c2bcb993fda60c", 72_358_547_456, 54),
+    ("mobilenet_v2_1.0_dlc_reaching", 264, "8a85cc33cd4e8c0e",
+     6_817_118_464, 53)])
+def test_the_two_families_are_pinned(name, n_specs, sha, macs, n_layers):
+    """Each family's weights and layer plan at 747x832, fixed: the specs'
+    names, shapes, roles and order (``make_weights`` draws one flat
+    normal vector in spec order, so the order decides every weight), the
+    multiply-adds with the head, the convolutions and the map size."""
+    cfg = config(name)
+    specs = models.param_specs(cfg)
+    digest = hashlib.sha256(json.dumps(
+        [[n, list(shape), role] for n, shape, role in specs]).encode())
+    assert (len(specs), digest.hexdigest()[:16]) == (n_specs, sha)
+    assert flops.macs_per_frame(cfg, (747, 832)) == macs
+    assert len(arch.layers(cfg, (747, 832))) == n_layers
+    assert arch.map_hw(cfg, (747, 832)) == (94, 104)
 
 
 def test_bounds_and_busy_time():

@@ -46,7 +46,7 @@ def test_a_sound_run_is_correct():
                           "device", "checks"]
     assert line["correct"] and line["failed"] == 0
     assert line["attempted"] >= 8 and line["attempted"] % 4 == 0
-    assert set(line["metrics"]) == {"infer_frames_per_s", "setup_s"}
+    assert set(line["metrics"]) == {"card_ms_per_frame", "setup_s"}
     assert all(m["value"] > 0 for m in line["metrics"].values())
     for check in line["checks"].values():
         assert 0 <= check["value"] <= check["limit"]
@@ -99,3 +99,16 @@ def test_the_control_is_not_correct(name):
         "seed": 2 ** 31 + 91})
     assert got["failed"] > 0
     assert any(got[k] > v for k, v in cell["limits"].items())
+
+
+def test_the_card_time_lies_inside_the_window():
+    """The card's time on the window's batches is no longer than the
+    window: its share of it, frames/s times ms a frame, is in (0, 1]."""
+    cell = tiny("resnet50-infer-bf16")
+    out = infer_stream.run({
+        "config": cell["config"], "traffic": cell["traffic"],
+        "limits": cell["limits"], "device": torch.device("cpu"),
+        "seed": 2 ** 31 + 79, "seconds": 1.0, "trace": False,
+        "t_start": time.perf_counter()})
+    m = out["metrics"]
+    assert 0 < m["card_ms_per_frame"] * m["infer_frames_per_s"] / 1e3 <= 1

@@ -17,6 +17,10 @@ def test_the_reference_imports_nothing_of_jax_or_the_program():
             "import dgpbench.reference as r\n"
             "for m in pkgutil.iter_modules(r.__path__):\n"
             "    importlib.import_module('dgpbench.reference.' + m.name)\n"
+            "import dgpbench.reference.families as f\n"
+            "for m in pkgutil.iter_modules(f.__path__):\n"
+            "    importlib.import_module('dgpbench.reference.families.'"
+            " + m.name)\n"
             "import dgpbench.counts.flops, dgpbench.counts.roofline\n"
             "print(json.dumps(sorted({n.split('.')[0] for n in "
             "sys.modules})))\n")

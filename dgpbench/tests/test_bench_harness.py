@@ -4,6 +4,8 @@ a new cell and a new metric by their names alone."""
 import json
 import re
 import shutil
+import subprocess
+import sys
 from pathlib import Path
 
 import pytest
@@ -121,6 +123,163 @@ def test_a_new_cell_and_metric_are_found_by_name(tmp_path, bench):
     assert harness.load_driver(tmp_path, "infer_stream").run
 
 
+TOY_FAMILY = '''"""A toy family: two 3x3 convolutions with frozen BN and ReLU, the
+first of stride 2, then a gain a channel, a role of its own."""
+import torch
+
+from dgpbench.reference import models
+
+
+def specs(cfg, conv, bn):
+    d = cfg["depth"]
+    conv("conv_a", d, 3, 3, "root")
+    bn("bn_a", d)
+    conv("conv_b", d, d, 3)
+    bn("bn_b", d)
+    conv("gain", d, 1, 1, "toy_gain")
+    return d
+
+
+def backbone(cfg, w, x, conv):
+    b = "backbone."
+    for name, stride in (("a", 2), ("b", 1)):
+        x = torch.relu(models.frozen_bn(w, f"{b}bn_{name}", models.same_conv(
+            conv, x, w[f"{b}conv_{name}.weight"], stride)))
+    return x * w[b + "gain.weight"].view(1, -1, 1, 1)
+
+
+def layers(cfg, hw, add):
+    d = cfg["depth"]
+    half = tuple(-(-n // 2) for n in hw)
+    add("conv_a", 3, 3, d, 2, 1, hw, half)
+    add("conv_b", 3, d, d, 1, 1, half, half)
+    return half, d
+
+
+def init(role, z, shape):
+    return 1.0 + 0.01 * z if role == "toy_gain" else None
+'''
+
+TOY_CHECK = '''import json, sys
+from pathlib import Path
+import torch
+import torch.nn.functional as F
+from dgpbench import data, harness
+from dgpbench.counts import flops
+from dgpbench.reference import arch, models
+
+root = Path(__file__).resolve().parent
+assert Path(data.__file__).resolve().is_relative_to(root), data.__file__
+cell = harness.load_cell(root, "toy-infer")
+cfg = cell["config"]
+w = data.make_weights(cfg, 2 ** 31 + 5, "cpu")
+seen = []
+
+
+def counting_conv(x, weight, stride=1, padding=0, dilation=1, groups=1):
+    y = models.plain_conv(x, weight, stride, padding, dilation, groups)
+    seen.append(y[0].numel() * weight[0].numel())
+    return y
+
+
+def counting_transpose(x, weight, bias, stride):
+    seen.append(x[0, 0].numel() * weight.numel())
+    return F.conv_transpose2d(x, weight, bias, stride)
+
+
+frames = torch.from_numpy(data.make_frames(3, 2, (64, 72), "cpu"))
+with torch.no_grad():
+    out = models.forward(cfg, w, frames, counting_conv, counting_transpose)
+print(json.dumps({
+    "batch": cell["traffic"]["batch"],
+    "names": {k: list(v.shape) for k, v in w.items()},
+    "gain_dev": float((w["backbone.gain.weight"] - 1).abs().max()),
+    "out": list(out.shape), "finite": bool(torch.isfinite(out).all()),
+    "std": float(out.std()),
+    "layers": [l["site"] for l in arch.layers(cfg, (64, 72))],
+    "map_hw": list(arch.map_hw(cfg, (64, 72))),
+    "macs": flops.macs_per_frame(cfg, (64, 72)), "seen": sum(seen)}))
+'''
+
+
+def test_a_new_family_joins_as_files_only(tmp_path, bench):
+    """A configuration of a backbone family the harness has not seen: its
+    family module, config, traffic, workload and ``BENCHMARK.json`` entry
+    are new files and entries, and the harness's cell, weights, reference
+    forward, layer plan and counts take it with no other file changed."""
+    shutil.copytree(ROOT / "dgpbench", tmp_path / "dgpbench",
+                    ignore=shutil.ignore_patterns("__pycache__", "tests"))
+    d = tmp_path / "dgpbench"
+    (d / "reference" / "families" / "toy.py").write_text(TOY_FAMILY)
+    (d / "configs" / "toy_two_conv.json").write_text(json.dumps(
+        {"name": "toy_two_conv", "family": "toy", "net_type": "toy",
+         "depth": 8, "num_joints": 3, "deconvolution_stride": 2,
+         "location_refinement": True, "frame_hw": [64, 72], "stride": 4.0,
+         "gamma": 1.0, "gauss_len": 1.0,
+         "mean_pixel": [123.68, 116.779, 103.939], "reduced": []}))
+    traffic = harness.load_json(ROOT / "dgpbench" / "traffic"
+                                / "stream_bf16_b128.json")
+    (d / "traffic" / "toy_stream_b4.json").write_text(json.dumps(
+        {**traffic, "batch": 4}))
+    (d / "workloads" / "toy-infer.json").write_text(json.dumps(
+        {"config": "toy_two_conv", "traffic": "toy_stream_b4",
+         "limits": {"mu_err_cells_p50": 1.0, "lik_err": 1.0}}))
+    new = json.loads(json.dumps(bench))
+    new["configs"].append({"name": "toy_two_conv",
+                           "source": "https://arxiv.org/abs/1512.03385",
+                           "file": "dgpbench/configs/toy_two_conv.json",
+                           "reduced": [], "why": "a toy family"})
+    new["workloads"].append({"name": "toy-infer", "config": "toy_two_conv",
+                             "traffic": "toy_stream_b4", "chips": 1,
+                             "why": "a toy family"})
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(new))
+    (tmp_path / "check_toy.py").write_text(TOY_CHECK)
+    run = subprocess.run([sys.executable, "check_toy.py"], cwd=tmp_path,
+                         capture_output=True, text=True, timeout=300)
+    assert run.returncode == 0, run.stderr
+    got = json.loads(run.stdout.splitlines()[-1])
+    assert got["batch"] == 4
+    assert got["names"] == {
+        "backbone.conv_a.weight": [8, 3, 3, 3],
+        **{f"backbone.bn_a.{p}": [8] for p in ("scale", "bias", "mean",
+                                                 "var")},
+        "backbone.conv_b.weight": [8, 8, 3, 3],
+        **{f"backbone.bn_b.{p}": [8] for p in ("scale", "bias", "mean",
+                                                 "var")},
+        "backbone.gain.weight": [8, 1, 1, 1],
+        "part_pred.block4.weight": [8, 3, 3, 3],
+        "part_pred.block4.bias": [3],
+        "locref_pred.block4.weight": [8, 6, 3, 3],
+        "locref_pred.block4.bias": [6]}
+    assert 0 < got["gain_dev"] < 0.05       # scaled by the family's init
+    assert got["out"] == [2, 64, 72, 3] and got["finite"]
+    assert got["std"] > 0
+    assert got["layers"] == ["conv_a", "conv_b", "part_pred"]
+    assert got["map_hw"] == [64, 72]
+    # by hand: 32x36 outputs of 3->8 and 8->8 3x3s, the head 8->3 on 32x36
+    assert got["macs"] == got["seen"] == 32 * 36 * 9 * (3 * 8 + 8 * 8
+                                                        + 8 * 3)
+
+
+@pytest.mark.parametrize("family", ["hrnet", "../arch"])
+@pytest.mark.parametrize("fn", ["param_specs", "backbone", "layers",
+                                "make_weights"])
+def test_an_unknown_family_names_the_missing_file(family, fn):
+    from dgpbench import data
+    from dgpbench.reference import arch, models
+
+    cfg = harness.load_json(ROOT / "dgpbench" / "configs"
+                            / "resnet50_dlc_reaching.json")
+    cfg["family"] = family
+    call = {"param_specs": lambda: models.param_specs(cfg),
+            "backbone": lambda: models.backbone(cfg, {}, None),
+            "layers": lambda: arch.layers(cfg, (64, 72)),
+            "make_weights": lambda: data.make_weights(cfg, 0, "cpu")}[fn]
+    missing = f"families/{family}.py"
+    with pytest.raises(ValueError, match=re.escape(missing)):
+        call()
+
+
 def test_metric_readers_on_a_trace(bench):
     """Each reader on a made-up trace: the shares stay at or under 100%
     when the kernels take at least their bounds, and a reader with
@@ -138,7 +297,7 @@ def test_metric_readers_on_a_trace(bench):
     trace = {"kernels": kernels, "batches": 1, "frames": 128, "batch": 128,
              "busy_s": 0.15, "wall_s": 0.16, "frame_hw": (747, 832),
              "map_shape": (128, 94, 104, 5), "frames_per_s": 900.0,
-             "config": cfg, "traffic": traffic,
+             "card_ms_per_frame": 0.5, "config": cfg, "traffic": traffic,
              "host_spans": {"host_to_device": [0.04, 0.06]},
              "batch_ms_p95": 700.0}
     got = {m["name"]: harness.load_metric(ROOT, m["name"]).read(trace)
@@ -152,3 +311,14 @@ def test_metric_readers_on_a_trace(bench):
     assert got["host_transfer_ms_per_batch.infer"] == pytest.approx(50.0)
     assert got["infer_batch_ms_p95"] == 700.0
     assert 0 < got["mfu.infer"] < 100
+    assert 0 < got["mfu.card"] < 100
+    assert got["mfu.card"] == pytest.approx(
+        got["mfu.infer"] / (900.0 * 0.5e-3))
+    assert got["infer_frames_per_s.paced"] == 900.0
+    for m in bench["per_layer"]:
+        if m["name"].endswith(".paced") and m["name"] != (
+                "infer_frames_per_s.paced"):
+            base = m["name"].replace(".paced", ".infer")
+            if base not in got:
+                base = m["name"].replace(".paced", "")
+            assert got[m["name"]] == got[base]
